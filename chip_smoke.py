@@ -5,15 +5,25 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, drives the
-port's main path — ``ContinuousBatchingEngine`` serving requests with
-tensor-parallel decode at the published widths of qwen3-1.7b, decode
-attention through the paged-attention kernel — and checks the serving
-contract (cross-world token identity, kill-rank heal replay).  Every
-phase prints one line; any failure raises and exits non-zero.  The last
-lines are the card (``nvidia-smi`` name and power limit), one JSON object
-with the kernels' numbers, and ``{"ok": true, "device": {...}}``.
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, all in parallel), holds each against its plain
+PyTorch version on the card, and drives the port's two paths:
+
+* serving — ``ContinuousBatchingEngine`` with tensor-parallel decode at
+  the published widths of qwen3-1.7b, decode attention through the
+  paged-attention kernel — and its contract (cross-world token identity,
+  kill-rank heal replay);
+* training — ``python -m repro_torch.launch.train`` at the published
+  widths and depth of llama3.2-1b in ``fmi`` mode (2 data-parallel ranks
+  on the card, ring allreduce), attention forward and backward through the
+  flash-attention kernels — and its contract at 4 layers (``fmi`` at world
+  1/2/4 against ``xla``, recursive doubling against ring, the int8
+  compressed allreduce through the quantize kernels, card against CPU).
+
+Each phase prints its lines and seconds; any failure raises and exits
+non-zero.  The last lines are the card (``nvidia-smi`` name and power
+limit), one JSON object with the kernels' numbers, and
+``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the rest of the repository: without a GPU, or run from a
 directory that holds nothing else of the repository, it exits non-zero and
@@ -27,10 +37,15 @@ import sys
 
 # cuBLAS is deterministic only with a fixed workspace, set before CUDA starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# the phases free and allocate buffers of many sizes in one process; the
+# training phase needs ~60 GB in few large blocks, which a fragmented cache
+# of fixed segments may not have
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 sys.modules["jax"] = None  # the port must never reach for JAX
 
 import argparse  # noqa: E402
 import dataclasses  # noqa: E402
+import gc  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
@@ -38,6 +53,7 @@ from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -50,6 +66,36 @@ TIER_INT8_VS_F32 = dict(rtol=0.0, atol=5e-2)
 # cuts the depth to 4 layers
 ARCH, CONTRACT_LAYERS = "qwen3-1.7b", 4
 PS, WORLD, PAGES_PER_RANK = 8, 4, 64
+
+# the training path: llama3.2-1b at its published widths and depth, fmi
+# mode over 2 data-parallel ranks on the card, 2 sequences of 2048 tokens
+# per rank, bf16 compute with f32 parameters and moments
+TRAIN_ARCH, TRAIN_P, TRAIN_STEPS = "llama3.2-1b", 2, 8
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--mode", "fmi", "--data-axis",
+              str(TRAIN_P), "--allreduce", "ring", "--batch", "4", "--seq",
+              "2048", "--steps", str(TRAIN_STEPS)]
+TRAIN_RECKONED_PEAK_GB = 58.0  # params, moments, stacked grads, ring copies
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+# flash attention sweep of tests/test_kernels.py (B, Hq, Hkv, T, S, d,
+# causal, window, q_offset) and its tolerances
+ATT_CASES = [
+    (2, 4, 2, 256, 256, 64, True, 0, 0),
+    (1, 8, 2, 128, 384, 64, True, 0, 256),
+    (2, 4, 4, 200, 200, 32, True, 0, 0),
+    (1, 2, 1, 256, 256, 64, False, 0, 0),
+    (2, 4, 2, 256, 256, 64, True, 64, 0),
+    (1, 1, 1, 64, 64, 128, True, 0, 0),
+    (1, 4, 2, 1, 513, 64, True, 0, 512),
+    (2, 4, 2, 100, 100, 16, True, 0, 0),
+]
+ATT_ATOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+# the training shape of one rank's attention call (B, Hq, Hkv, T, d)
+ATT_TRAIN = (2, 32, 8, 2048, 64)
+# the int8 run's largest per-step loss gap to the uncompressed ring over 6
+# steps at lr 5e-5 (train_contract).  On an H100 the int8 run reads 4.6e-3,
+# a codec that leaves the state unchanged 5.2 and one that drops the last
+# rank 1.7; the phase checks that both controls land beyond the bound
+INT8_DLOSS = 5e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -127,7 +173,9 @@ def full_scales(scale, kp):
 def time_ms(fn, iters: int) -> tuple[float, float]:
     """``(device_ms, stream_ms)`` per call of ``fn`` over ``iters`` calls,
     after a warm-up.  ``device_ms`` sums the device time of every kernel
-    the calls launched (``torch.profiler``); ``stream_ms`` is the CUDA-event
+    the calls launched (``torch.profiler``'s device events only: a host op
+    also reports the time of the kernels it launched, so summing every
+    event would count them twice); ``stream_ms`` is the CUDA-event
     span of the whole loop, so it also holds the gaps where the device
     waited for the host.  Where the profiler records no device time,
     ``device_ms`` is the event span too."""
@@ -148,9 +196,8 @@ def time_ms(fn, iters: int) -> tuple[float, float]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    device_us = sum(getattr(e, "self_device_time_total", 0.0) or
-                    getattr(e, "self_cuda_time_total", 0.0)
-                    for e in prof.key_averages())
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
     device_ms = device_us / 1e3 / iters if device_us > 0 else stream_ms
     return device_ms, stream_ms
 
@@ -496,6 +543,468 @@ def phase_contract(seed: int, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# training phases
+# ---------------------------------------------------------------------------
+
+
+def time_bwd_ms(forward, inputs, dout, iters: int) -> float:
+    """CUDA-event time of one backward per call: each iteration runs a
+    fresh forward outside the timed span, then times the gradient of its
+    output with respect to ``inputs`` (stream span, so host gaps count)."""
+    total = 0.0
+    for i in range(iters + 2):
+        out = forward()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(out, inputs, dout)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:  # two warm-up calls
+            total += start.elapsed_time(end)
+        del out
+    return total / iters
+
+
+def bound(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
+    """(least ms, what bounds it): the larger of the bytes over the device
+    memory rate and the operations over ``rate``."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = flops / rate * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
+    """Flash attention forward/backward and the blockwise quantizers on
+    the card against their plain versions, and their timings at the
+    training path's shapes."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(shape, dt, grad=False):
+        t = torch.randn(shape, generator=g).to(dt).to(dev)
+        return t.requires_grad_(True) if grad else t
+
+    fwd_err = bwd_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for case in ATT_CASES:
+            B, Hq, Hkv, T, S, d, causal, window, off = case
+            q, k, v = (rnd((B, Hq, T, d), dt, True), rnd((B, Hkv, S, d), dt, True),
+                       rnd((B, Hkv, S, d), dt, True))
+            dout = rnd((B, Hq, T, d), dt)
+            got = fa.flash_attention(q, k, v, causal, window, off)
+            want = fa.flash_attention_plain(q, k, v, causal, window, off)
+            err = float((got.detach().float() - want.detach().float()).abs().max())
+            if not bool(torch.isfinite(got).all()) or err > ATT_ATOL[dt]:
+                raise AssertionError(f"flash forward {case} {dt}: max err "
+                                     f"{err} > {ATT_ATOL[dt]}")
+            fwd_err = max(fwd_err, err)
+            grads = torch.autograd.grad(got, (q, k, v), dout)
+            refs = torch.autograd.grad(want, (q, k, v), dout)
+            for name, a, b in zip("qkv", grads, refs):
+                tol = 1e-4 if dt == torch.float32 else \
+                    2e-2 * float(b.float().abs().max())
+                e = float((a.float() - b.float()).abs().max())
+                if not bool(torch.isfinite(a).all()) or e > tol:
+                    raise AssertionError(f"flash backward d{name} {case} "
+                                         f"{dt}: max err {e} > {tol}")
+                bwd_err = max(bwd_err, e)
+            q0, k0, v0 = q.detach(), k.detach(), v.detach()
+            out, lse = fa.flash_attention_fwd(q0, k0, v0, causal, window, off)
+            one = fa.flash_attention_bwd(q0, k0, v0, out, dout, lse, causal,
+                                         window, off)
+            two = fa.flash_attention_bwd(q0, k0, v0, out, dout, lse, causal,
+                                         window, off)
+            if not all(torch.equal(a, b) for a, b in zip(one, two)):
+                raise AssertionError(f"flash backward {case} {dt}: two "
+                                     f"launches differ")
+    torch.cuda.synchronize()
+    log("train_kernel", f"flash_attention over {len(ATT_CASES)} cases x "
+                        f"f32/bf16: forward within atol 3e-5/3e-2 of plain "
+                        f"(max {fwd_err:.3e}); dq/dk/dv within 1e-4 (f32) and "
+                        f"2e-2 x max|ref| (bf16) of autograd through plain "
+                        f"(max {bwd_err:.3e}); two backward launches bitwise "
+                        f"equal")
+
+    for dt in (torch.float32, torch.bfloat16):
+        for R, N, block in ((8, 1024, 256), (3, 512, 128), (16, 4096, 256),
+                            (1, 256, 256), (4, 1 << 20, 256)):
+            x = rnd((R, N), torch.float32) * 3
+            x[0, :block] = 0  # a block of zeros: scale 1, exact zeros
+            x = x.to(dt)
+            q1, s1 = qz.quantize_blockwise(x, block)
+            q2, s2 = qz.quantize_blockwise_plain(x, block)
+            d1 = qz.dequantize_blockwise(q1, s1, block)
+            d2 = qz.dequantize_blockwise_plain(q2, s2, block)
+            # the plain version on the host is the one the tests hold
+            # bit-exact against the reference's Pallas kernels
+            q3, s3 = qz.quantize_blockwise_plain(x.cpu(), block)
+            d3 = qz.dequantize_blockwise_plain(q3, s3, block)
+            torch.cuda.synchronize()
+            if not (torch.equal(q1, q2) and torch.equal(s1, s2)
+                    and torch.equal(d1, d2) and torch.equal(q1.cpu(), q3)
+                    and torch.equal(s1.cpu(), s3) and torch.equal(d1.cpu(), d3)):
+                raise AssertionError(f"quantize {dt} {R}x{N}/{block}: not "
+                                     f"bit-exact with the plain version (card "
+                                     f"and host)")
+    # a block whose max-abs is 127 has scale 1, so x / scale lands on the
+    # .5 ties themselves: they round half to even, as the reference does
+    ties = torch.arange(-127, 127, device=dev, dtype=torch.float32) + 0.5
+    ties = torch.cat([ties, torch.tensor([127.0, -127.0], device=dev)])[None]
+    for dt in (torch.float32, torch.bfloat16):
+        q1, s1 = qz.quantize_blockwise(ties.to(dt), 256)
+        q2, s2 = qz.quantize_blockwise_plain(ties.to(dt), 256)
+        if not (torch.equal(q1, torch.round(ties).to(torch.int8))
+                and torch.equal(q1, q2) and float(s1) == 1.0 == float(s2)):
+            raise AssertionError(f"quantize {dt}: .5 ties do not round half "
+                                 f"to even")
+    log("train_kernel", "quantize/dequantize_blockwise bit-exact with plain "
+                        "on the card and on the host (f32 and bf16, 5 shapes, "
+                        "zero blocks, .5 ties round half to even)")
+
+    # the flash kernels against the plain version at the training path's
+    # shape (64 q blocks, 64 kv tiles, GQA group 4), then their timings
+    B, Hq, Hkv, T, d = ATT_TRAIN
+    bf = torch.bfloat16
+    q, k, v = rnd((B, Hq, T, d), bf), rnd((B, Hkv, T, d), bf), rnd((B, Hkv, T, d), bf)
+    dout = rnd((B, Hq, T, d), bf)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    got = fa.flash_attention(qg, kg, vg, True)
+    want = fa.flash_attention_plain(qg, kg, vg, True)
+    err = float((got.detach().float() - want.detach().float()).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > ATT_ATOL[bf]:
+        raise AssertionError(f"flash forward {ATT_TRAIN} bf16: max err {err} "
+                             f"> {ATT_ATOL[bf]}")
+    fwd_err = max(fwd_err, err)
+    grads = torch.autograd.grad(got, (qg, kg, vg), dout)
+    refs = torch.autograd.grad(want, (qg, kg, vg), dout)
+    errs = []
+    for name, a, b in zip("qkv", grads, refs):
+        tol = 2e-2 * float(b.float().abs().max())
+        e = float((a.float() - b.float()).abs().max())
+        if not bool(torch.isfinite(a).all()) or e > tol:
+            raise AssertionError(f"flash backward d{name} {ATT_TRAIN} bf16: "
+                                 f"max err {e} > {tol}")
+        errs.append(f"d{name} {e:.3e} (tol {tol:.3e})")
+        bwd_err = max(bwd_err, e)
+    del got, want, grads, refs
+    log("train_kernel", f"flash_attention at the training shape B={B} Hq={Hq} "
+                        f"Hkv={Hkv} T=S={T} d={d} causal bf16 vs plain: "
+                        f"forward {err:.3e} (atol 3e-2); {', '.join(errs)}")
+    out, lse = fa.flash_attention_fwd(q, k, v, True, 0, 0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    f_times = {}
+    with torch.no_grad():
+        for name, fn in (
+                ("plain", lambda: fa.flash_attention_plain(q, k, v, True)),
+                ("kernel", lambda: fa.flash_attention_fwd(q, k, v, True, 0, 0)),
+                ("kernel2", lambda: fa.flash_attention_fwd(q, k, v, True, 0, 0)),
+                ("plain2", lambda: fa.flash_attention_plain(q, k, v, True)),
+                ("library", lambda: sdpa(q, k, v, is_causal=True,
+                                         enable_gqa=True))):
+            f_times[name] = time_ms(fn, 20)
+    b_times = {}
+    for name, fwd in (
+            ("plain", lambda: fa.flash_attention_plain(qg, kg, vg, True)),
+            ("kernel", lambda: fa.flash_attention(qg, kg, vg, True)),
+            ("kernel2", lambda: fa.flash_attention(qg, kg, vg, True)),
+            ("plain2", lambda: fa.flash_attention_plain(qg, kg, vg, True))):
+        b_times[name] = time_bwd_ms(fwd, (qg, kg, vg), dout, 10)
+    lib_fwd = lambda: sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)  # noqa: E731
+    lib_note = "deterministic mode on"
+    try:
+        b_times["library"] = time_bwd_ms(lib_fwd, (qg, kg, vg), dout, 10)
+    except RuntimeError as e:  # deterministic mode refuses SDPA's backward
+        lib_note = f"deterministic mode off for this call only ({e})"[:160]
+        torch.use_deterministic_algorithms(False)
+        try:
+            b_times["library"] = time_bwd_ms(lib_fwd, (qg, kg, vg), dout, 10)
+        finally:
+            torch.use_deterministic_algorithms(True)
+    pairs = T * (T + 1) // 2  # visible (q, k) pairs per head, causal
+    io = 2 * (2 * B * Hq * T * d + 2 * B * Hkv * T * d)  # q, out; k, v (bf16)
+    f_bound, f_by = bound(io + 4 * B * Hq * T, 4.0 * B * Hq * pairs * d,
+                          BF16_FLOPS)
+    # backward: recompute S, dP, dV, dK, dQ (five products); reads q, k, v,
+    # out, dout, lse, writes dq, dk, dv
+    b_io = 2 * (3 * B * Hq * T * d + 2 * B * Hkv * T * d) + 4 * B * Hq * T + \
+        2 * (B * Hq * T * d + 2 * B * Hkv * T * d)
+    b_bound, b_by = bound(b_io, 10.0 * B * Hq * pairs * d, BF16_FLOPS)
+    log("train_kernel", f"flash_attention at the training shape B={B} Hq={Hq} "
+                        f"Hkv={Hkv} T=S={T} d={d} causal bf16, device ms per "
+                        f"call (stream ms): kernel {f_times['kernel'][0]:.6f}/"
+                        f"{f_times['kernel2'][0]:.6f} "
+                        f"({f_times['kernel'][1]:.6f}), plain "
+                        f"{f_times['plain'][0]:.6f}/{f_times['plain2'][0]:.6f}, "
+                        f"SDPA {f_times['library'][0]:.6f}; bound "
+                        f"{f_bound:.6f} ({f_by})")
+    log("train_kernel", f"flash_attention backward, stream ms per call: "
+                        f"kernel {b_times['kernel']:.6f}/{b_times['kernel2']:.6f},"
+                        f" plain (autograd, block recompute) "
+                        f"{b_times['plain']:.6f}/{b_times['plain2']:.6f}, SDPA "
+                        f"backward {b_times['library']:.6f} ({lib_note}); "
+                        f"bound {b_bound:.6f} ({b_by})")
+
+    # the quantizers at the int8 path's chunk: [P, 1, c] of the 4-layer
+    # model's padded f32 gradients over 4 ranks
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    P = 4
+    n = lm.count_params(dataclasses.replace(configs.get(TRAIN_ARCH),
+                                            n_layers=CONTRACT_LAYERS))
+    c = (n + (-n) % (P * 256)) // P
+    xq = rnd((P, 1, c), torch.float32)
+    qq, sq = qz.quantize_blockwise(xq)
+    qp, sp = qz.quantize_blockwise_plain(xq)
+    same = torch.equal(qq, qp) and torch.equal(sq, sp)
+    del qp, sp
+    same = same and torch.equal(qz.dequantize_blockwise(qq, sq),
+                                qz.dequantize_blockwise_plain(qq, sq))
+    if not same:
+        raise AssertionError(f"quantize/dequantize at [{P}, 1, {c}] f32: not "
+                             f"bit-exact with the plain version")
+    q_times = {name: time_ms(fn, 10) for name, fn in (
+        ("plain", lambda: qz.quantize_blockwise_plain(xq)),
+        ("kernel", lambda: qz.quantize_blockwise(xq)),
+        ("kernel2", lambda: qz.quantize_blockwise(xq)),
+        ("plain2", lambda: qz.quantize_blockwise_plain(xq)))}
+    d_times = {name: time_ms(fn, 10) for name, fn in (
+        ("plain", lambda: qz.dequantize_blockwise_plain(qq, sq)),
+        ("kernel", lambda: qz.dequantize_blockwise(qq, sq)),
+        ("kernel2", lambda: qz.dequantize_blockwise(qq, sq)),
+        ("plain2", lambda: qz.dequantize_blockwise_plain(qq, sq)))}
+    elems = P * c
+    q_bound, q_by = bound(4 * elems + elems + 4 * elems / 256, 3.0 * elems,
+                          F32_FLOPS)
+    d_bound, d_by = bound(elems + 4 * elems / 256 + 4 * elems, 1.0 * elems,
+                          F32_FLOPS)
+    log("train_kernel", f"quantize_blockwise at [{P}, 1, {c}] f32, device ms: "
+                        f"kernel {q_times['kernel'][0]:.6f}/"
+                        f"{q_times['kernel2'][0]:.6f}, plain "
+                        f"{q_times['plain'][0]:.6f}/{q_times['plain2'][0]:.6f}, "
+                        f"bound {q_bound:.6f} ({q_by}); dequantize_blockwise: "
+                        f"kernel {d_times['kernel'][0]:.6f}/"
+                        f"{d_times['kernel2'][0]:.6f}, plain "
+                        f"{d_times['plain'][0]:.6f}/{d_times['plain2'][0]:.6f}, "
+                        f"bound {d_bound:.6f} ({d_by}); no single library "
+                        f"call; both bit-exact with plain at this shape")
+    del xq, qq, sq, q, k, v, dout, out, lse, qg, kg, vg
+    torch.cuda.empty_cache()
+
+    def rec(name, source, err, times, bnd, by, library, ms=None, plain=None):
+        if ms is None:
+            ms = min(times["kernel"][0], times["kernel2"][0])
+            plain = min(times["plain"][0], times["plain2"][0])
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                "library_ms": library}
+
+    return [
+        rec("flash_attention", "flash_attention.cu", fwd_err, f_times, f_bound,
+            f_by, f_times["library"][0]),
+        rec("flash_attention_bwd", "flash_attention.cu", bwd_err, None,
+            b_bound, b_by, b_times["library"],
+            ms=min(b_times["kernel"], b_times["kernel2"]),
+            plain=min(b_times["plain"], b_times["plain2"])),
+        rec("quantize_blockwise", "quantize.cu", 0.0, q_times, q_bound, q_by,
+            None),
+        rec("dequantize_blockwise", "quantize.cu", 0.0, d_times, d_bound, d_by,
+            None),
+    ]
+
+
+REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:119",
+    # the reference has no backward kernel: this is the gradient of the
+    # same function
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:119",
+    "quantize_blockwise": "src/repro/kernels/quantize.py:50",
+    "dequantize_blockwise": "src/repro/kernels/quantize.py:81",
+}
+
+
+def phase_train(fa) -> dict:
+    """The training path at full width and depth through the launcher;
+    returns the flash kernels' launches in that run."""
+    from repro_torch.launch import train
+
+    before = torch.cuda.memory_allocated()
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    hist = train.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    layers = 16
+    want = {"flash_attention": 2 * layers * TRAIN_P * TRAIN_STEPS,
+            "flash_attention_bwd": layers * TRAIN_P * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches} != {want} (per step: "
+                             f"forward 2 x {layers} x {TRAIN_P} with per-layer "
+                             f"recompute, backward {layers} x {TRAIN_P})")
+    loss = [h["loss"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(loss)):
+        raise AssertionError(f"losses {loss}")
+    if not hist[-1]["ce"] < hist[0]["ce"]:
+        raise AssertionError(f"ce did not fall: {hist[0]['ce']} -> "
+                             f"{hist[-1]['ce']}")
+    peak = max(h.get("peak_bytes", 0) for h in hist)
+    steady = hist[1:]
+    step_ms = sum(h["time_s"] for h in steady) / len(steady) * 1e3
+    tok_s = sum(h["tokens_per_s"] for h in steady) / len(steady)
+    log("train", f"{TRAIN_ARCH} full width and depth, fmi x{TRAIN_P} ring, "
+                 f"batch 4 x 2048: ce {hist[0]['ce']:.4f} -> "
+                 f"{hist[-1]['ce']:.4f}; steps 2-{TRAIN_STEPS} mean "
+                 f"{step_ms:.3f} ms/step, {tok_s:.3f} tok/s; peak device "
+                 f"memory {peak / 1e9:.3f} GB (reckoned "
+                 f"{TRAIN_RECKONED_PEAK_GB:.0f} GB; {before / 1e9:.3f} GB "
+                 f"held before the phase); launches {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_contract(qz, seed: int, dev) -> dict:
+    """The training contract on the card at llama3.2-1b widths, 4 layers,
+    f32: fmi at world 1/2/4 against xla, recursive doubling against ring,
+    int8 compression trains (and its quantizer launches), and a small
+    config's card run against the CPU run.  Returns the quantizers'
+    launches on the int8 path."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.core import compression
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizer import OptConfig
+    from repro_torch.training.train_step import (TrainConfig, init_opt_state,
+                                                 make_train_step)
+
+    # the reference's contract optimizer (tests/test_multidevice.py:94)
+    opt = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10, clip_norm=0.0)
+
+    def run(cfg, device, steps=3, world=1, model=None, batch=4, seq=256,
+            optimizer=opt, **kw):
+        tcfg = TrainConfig(optimizer=optimizer, **kw)
+        step, _, _ = make_train_step(cfg, tcfg, make_host_mesh(world),
+                                     device=device)
+        if model is None:
+            model = lm.init_params(cfg, seed=seed, device=device)
+        state = init_opt_state(cfg, tcfg, model)
+        losses = []
+        for s in range(steps):
+            b = synthetic_batch(DataConfig(), cfg, batch, seq, s)
+            model, state, m = step(model, state, b)
+            losses.append(float(m["loss"]))
+        del state
+        return losses, model
+
+    def dparam(a, b):
+        pb = dict(b.named_parameters())
+        return max(float((p.detach() - pb[n].detach()).abs().max())
+                   for n, p in a.named_parameters())
+
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=CONTRACT_LAYERS,
+                              dtype="float32")
+    l_xla, m_xla = run(cfg, dev, mode="xla")
+    l_ring = None
+    for world in (1, 2, 4):
+        losses, model = run(cfg, dev, world=world, mode="fmi", allreduce="ring")
+        dl = max(abs(a - b) for a, b in zip(losses, l_xla))
+        dp = dparam(model, m_xla)
+        del model
+        if dl >= 5e-3 or dp >= 5e-3:
+            raise AssertionError(f"fmi world {world} vs xla: dloss {dl}, "
+                                 f"dparam {dp}")
+        log("train_contract", f"fmi world {world} (ring) vs xla: dloss "
+                              f"{dl:.3e}, dparam {dp:.3e} (< 5e-3)")
+        if world == 4:
+            l_ring = losses
+    del m_xla
+    l_rd, model = run(cfg, dev, world=4, mode="fmi",
+                      allreduce="recursive_doubling")
+    del model
+    drd = max(abs(a - b) for a, b in zip(l_rd, l_ring))
+    if drd >= 1e-4:
+        raise AssertionError(f"recursive doubling vs ring: dloss {drd}")
+    log("train_contract", f"recursive_doubling vs ring at world 4: dloss "
+                          f"{drd:.3e} (< 1e-4)")
+
+    # int8: at lr 1e-3 and the published widths without warmup the loss
+    # swings by several nats from step to step (uncompressed or not), so
+    # the int8 run and the uncompressed ring it is held against both take
+    # lr 5e-5.  Two controls through the same codec show that the bound
+    # separates: one returns zeros (the state never changes), one drops
+    # the last rank's gradient before the ring.
+    P, steps = 4, 6
+    slow = dataclasses.replace(opt, lr=5e-5)
+    kw = dict(steps=steps, world=P, mode="fmi", optimizer=slow)
+    l_ring6, model = run(cfg, dev, allreduce="ring", **kw)
+    del model
+    qz.quantize_blockwise.launches = 0
+    qz.dequantize_blockwise.launches = 0
+    l_i8, model = run(cfg, dev, compression="int8", **kw)
+    torch.cuda.synchronize()
+    del model
+    launches = {"quantize_blockwise": qz.quantize_blockwise.launches,
+                "dequantize_blockwise": qz.dequantize_blockwise.launches}
+    codec = compression.compressed_ring_allreduce
+    controls = {
+        "state unchanged": lambda t, x, **k: torch.zeros_like(x),
+        "last rank dropped": lambda t, x, **k: codec(
+            t, torch.cat([x[:-1], torch.zeros_like(x[-1:])]), **k)}
+    d_ctl = {}
+    try:
+        for name, fn in controls.items():
+            compression.compressed_ring_allreduce = fn
+            losses, model = run(cfg, dev, compression="int8", **kw)
+            del model
+            d_ctl[name] = max(abs(a - b) for a, b in zip(losses, l_ring6))
+    finally:
+        compression.compressed_ring_allreduce = codec
+    d_i8 = max(abs(a - b) for a, b in zip(l_i8, l_ring6))
+    log("train_contract", f"int8 compressed ring at world {P}, {steps} steps, "
+                          f"lr 5e-5: losses {l_i8}; uncompressed ring "
+                          f"{l_ring6}; max dloss {d_i8:.6e} (< "
+                          f"{INT8_DLOSS}); controls through the codec: "
+                          + ", ".join(f"{n} {d:.6e}" for n, d in d_ctl.items())
+                          + f" (> {INT8_DLOSS}); launches {launches} = "
+                          f"{steps} steps x ({P}, {2 * P - 1}) over stacked "
+                          f"[P, 1, c] chunks")
+    want = {"quantize_blockwise": steps * P,
+            "dequantize_blockwise": steps * (2 * P - 1)}
+    if launches != want:
+        raise AssertionError(f"int8 path launches {launches} != {want}")
+    if not (all(np.isfinite(l_i8)) and l_i8[-1] < l_i8[0] + 0.05
+            and d_i8 < INT8_DLOSS):
+        raise AssertionError(f"int8 compression: losses {l_i8}, ring "
+                             f"{l_ring6}, max dloss {d_i8}")
+    if not all(d > INT8_DLOSS for d in d_ctl.values()):
+        raise AssertionError(f"the int8 bound {INT8_DLOSS} does not separate "
+                             f"the controls: {d_ctl}")
+    torch.cuda.empty_cache()
+
+    tiny = configs.get_reduced("llama3.2-1b", n_layers=2, d_model=64,
+                               n_heads=4, n_kv_heads=2, d_ff=128,
+                               vocab_size=256, head_dim=16)
+    m_cpu = lm.init_params(tiny, seed=seed, device="cpu")
+    m_gpu = copy.deepcopy(m_cpu).to(dev)
+    kw = dict(world=2, mode="fmi", allreduce="ring", batch=8, seq=32)
+    l_cpu, _ = run(tiny, "cpu", model=m_cpu, **kw)
+    l_gpu, _ = run(tiny, dev, model=m_gpu, **kw)
+    dl = max(abs(a - b) for a, b in zip(l_cpu, l_gpu))
+    if dl >= 1e-4:
+        raise AssertionError(f"small config card vs CPU: {l_gpu} vs {l_cpu}")
+    log("train_contract", f"small config (2 layers, d_model 64, f32) fmi x2 "
+                          f"on the card vs the CPU path: dloss {dl:.3e} per "
+                          f"step (< 1e-4)")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -505,7 +1014,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import quantize as qz
     from repro_torch.launch.serve import tp_config
 
     # 1. device and numerics settings
@@ -529,17 +1040,43 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
 
-    # 3. kernel vs plain, invariances, timings
-    record = phase_kernel(pa, tp_config(ARCH, 16, 16), args.seed, dev)
+    # 3. kernel vs plain, invariances, timings (serving, then training)
+    t0 = time.perf_counter()
+    records = [phase_kernel(pa, tp_config(ARCH, 16, 16), args.seed, dev)]
+    log("kernel", f"phase took {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    records += phase_train_kernel(fa, qz, args.seed, dev)
+    log("train_kernel", f"phase took {time.perf_counter() - t0:.2f}s")
 
-    # 4. the main path at full width; 5. the contract on the card
-    record["launches"] = phase_serve(pa, args.seed, dev)
+    # 4. the serving path at full width; 5. its contract on the card
+    t0 = time.perf_counter()
+    records[0]["launches"] = phase_serve(pa, args.seed, dev)
+    log("serve", f"phase took {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
     phase_contract(args.seed, dev)
+    log("contract", f"phase took {time.perf_counter() - t0:.2f}s")
+
+    # 6. the training path at full width and depth; 7. its contract.  The
+    # serving phases' objects hold reference cycles: collect them first, so
+    # that their device memory is free for the ~60 GB the phase needs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = phase_train(fa)
+    log("train", f"phase took {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    launches.update(phase_train_contract(qz, args.seed, dev))
+    log("train_contract", f"phase took {time.perf_counter() - t0:.2f}s")
+    for r in records[1:]:
+        r["launches"] = launches[r["name"]]
+    if not all(r["launches"] > 0 for r in records):
+        raise AssertionError(f"a kernel was not launched on its path: "
+                             f"{[(r['name'], r['launches']) for r in records]}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
-    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

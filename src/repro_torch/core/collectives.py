@@ -11,8 +11,9 @@ and an ``algorithm``:
   :data:`repro_torch.core.algorithms.ALGORITHMS` (the paper's direct
   channel).
 
-The provider-managed ``'xla'`` algorithm of the reference and the pytree
-entry point ``allreduce_tree`` are not ported yet (ROADMAP Queue 1).
+The provider-managed ``'xla'`` algorithm of the reference and the
+bucketed schedule of ``allreduce_tree`` are not ported yet (ROADMAP
+Queue 1, item 4).
 
 Shape handling: latency-class algorithms (recursive doubling, binomial,
 scan) run on the payload as-is; bandwidth-class chunked algorithms (ring,
@@ -32,6 +33,7 @@ import math
 import torch
 
 from ..analysis.sanitizer import get_active as _sanitizer
+from ..devices import true_div
 from . import algorithms as A
 from .communicator import Communicator
 from .selector import select
@@ -238,6 +240,71 @@ def barrier(comm: Communicator):
     return A.barrier(t)
 
 
-def allreduce_tree(*args, **kwargs):
-    """Pytree gradient sync of the training path — not ported yet."""
-    raise NotImplementedError(f"allreduce_tree is {_UNPORTED}")
+# ---------------------------------------------------------------------------
+# Trees — gradient-sync entry point used by training
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, out: list) -> None:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _leaves(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+    else:
+        out.append(tree)
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, it) for v in tree)
+    return next(it)
+
+
+def allreduce_tree(tree, comm: Communicator, op="add", algorithm="auto",
+                   objective="time", mean: bool = False,
+                   pipeline: int | None = None,
+                   schedule: str = "blocking"):
+    """Allreduce a tree (nested dicts/lists) of stacked ``[P, ...]``
+    tensors, e.g. per-rank gradients.
+
+    ``schedule='blocking'``: leaves are grouped by dtype, raveled per rank
+    and fused into one ``[P, n]`` payload per dtype, reduced with one
+    collective each, then split back (leaf order within a dtype is the
+    tree's order).  ``mean=True`` divides by the communicator size
+    (data-parallel gradient averaging).  ``schedule='bucketed'`` (the
+    ``CommScheduler``) is not ported yet (ROADMAP Queue 1, item 4)."""
+    if comm.size == 1:
+        return tree
+    if schedule == "bucketed":
+        raise NotImplementedError(
+            f"schedule='bucketed' (CommScheduler) is {_UNPORTED}")
+    if schedule != "blocking":
+        raise ValueError(f"unknown schedule {schedule!r}; "
+                         "expected 'blocking' or 'bucketed'")
+    leaves: list = []
+    _leaves(tree, leaves)
+    by_dtype: dict = {}
+    for i, leaf in enumerate(leaves):
+        by_dtype.setdefault(leaf.dtype, []).append(i)
+    out = list(leaves)
+    P = comm.size
+    for dtype, idxs in by_dtype.items():
+        parts = [leaves[i].reshape(P, -1) for i in idxs]
+        # a dtype's only leaf is already the fused payload: no copy
+        flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        del parts
+        red = allreduce(flat, comm, op=op, algorithm=algorithm,
+                        objective=objective, pipeline=pipeline)
+        del flat
+        if mean:
+            red = true_div(red, P)
+        off = 0
+        for i in idxs:
+            n = math.prod(leaves[i].shape) // P
+            out[i] = red[:, off:off + n].reshape(leaves[i].shape)
+            off += n
+    return _rebuild(tree, iter(out))

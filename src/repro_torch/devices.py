@@ -31,6 +31,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return device
 
 
+def true_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """``x / divisor`` rounded as IEEE division, on every device.  PyTorch's
+    CUDA kernel multiplies by the reciprocal of a host scalar, which differs
+    from the quotient in the last bit for some inputs (``x / 127`` for ~5%
+    of f32 values); a divisor on ``x``'s own device keeps the division.
+
+    >>> true_div(torch.tensor([254.0, 1.0]), 127).tolist()
+    [2.0, 0.007874015718698502]
+    """
+    return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
+
+
 def to_device(array, device: torch.device) -> torch.Tensor:
     """A host array (indices, tokens, page tables) as a tensor on
     ``device``.  To a CUDA device it goes from pinned memory without

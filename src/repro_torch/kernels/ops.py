@@ -1,16 +1,31 @@
-"""Entry points for the port's kernels (port of :mod:`repro.kernels.ops`,
-``paged_attention`` only).
+"""Entry points for the port's kernels (port of :mod:`repro.kernels.ops`).
 
 The reference picks the Pallas kernel on a TPU and its XLA twin elsewhere;
-here the wrapper itself dispatches on the tensor's device (a CPU tensor runs
-the plain PyTorch version, a CUDA tensor the hand-written Hopper kernel), so
-this module only re-exports it.  The other reference kernels
-(``flash_attention``, ``gla_scan``, the quantizers) are not ported yet
-(ROADMAP Queue 2).
+here each wrapper dispatches on the tensor's device (a CPU tensor runs the
+plain PyTorch version, a CUDA tensor the hand-written Hopper kernel).
+``gla_scan`` and the per-page quantizers are not ported yet (ROADMAP
+Queue 2).
 """
 
 from __future__ import annotations
 
-from .paged_attention import paged_attention
+import torch
 
-__all__ = ["paged_attention"]
+from . import flash_attention as _fa
+from .paged_attention import paged_attention
+from .quantize import dequantize_blockwise, quantize_blockwise
+
+__all__ = ["dequantize_blockwise", "flash_attention", "paged_attention",
+           "quantize_blockwise"]
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
+    """GQA flash attention: q ``[B,Hq,T,d]``, k/v ``[B,Hkv,S,d]`` →
+    ``[B,Hq,T,d]``.  ``q_offset`` is static (a Python int): the dynamic
+    offset of the reference's decode path belongs to the decode slice."""
+    if isinstance(q_offset, torch.Tensor):
+        raise NotImplementedError(
+            "a dynamic q_offset (decode) is not ported yet (ROADMAP Queue 1, "
+            "item 14)")
+    return _fa.flash_attention(q, k, v, causal, window, q_offset)

@@ -43,6 +43,8 @@ import ctypes
 
 import torch
 
+from . import empty_for_kernel, stream_of
+
 NEG_INF = -1e30
 
 #: Storage dtypes the kernel reads, with its storage code.
@@ -172,21 +174,14 @@ def paged_attention(q, k_pages, v_pages, table, lengths, k_scale=None,
         q, k_pages, v_pages, table, lengths, k_scale, v_scale, kv_head,
         page_offset)
     fn = _kernel()
-    # the kernel writes every element of out, so deterministic mode's fill
-    # of fresh memory would only add a launch per call
-    fill = torch.utils.deterministic.fill_uninitialized_memory
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    try:
-        out = torch.empty((B, Hq, dv), dtype=torch.float32, device=q.device)
-    finally:
-        torch.utils.deterministic.fill_uninitialized_memory = fill
+    out = empty_for_kernel((B, Hq, dv), torch.float32, q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  table.data_ptr(), lengths.data_ptr(), k_scale.data_ptr(),
                  v_scale.data_ptr(), kv_head.data_ptr(),
                  page_offset.data_ptr(), out.data_ptr(), B, Hq, d, dv, ps,
-                 Hkv, npm, sm_scale, _STORAGE_CODE[k_pages.dtype], stream)
+                 Hkv, npm, sm_scale, _STORAGE_CODE[k_pages.dtype],
+                 stream_of(q))
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError_t {err}")

@@ -34,6 +34,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from ..serving.engine import ContinuousBatchingEngine
 from ..serving.tp_lm import TPServeConfig
@@ -89,18 +90,22 @@ def _explain(scfg: TPServeConfig, args) -> None:
             kv_dtype=args.kv_dtype))
 
 
-def _report_profile(prof, wall_s: float) -> None:
-    """Where the serve loop's time went: host ops by self CPU time, device
+def report_profile(prof, wall_s: float) -> None:
+    """Where the traced span's time went: host ops by self CPU time, device
     kernels by self device time, and the device's busy share of the wall
     time."""
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events)
+    # device events only: a host op also reports the device time of the
+    # kernels it launched, so summing every event would count them twice
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
     print(f"profile: wall {wall_s*1e3:.3f} ms, device kernels "
           f"{dev_us/1e3:.3f} ms (busy {100*dev_us/1e6/wall_s:.2f}% of wall)")
-    for key, title in (("self_cpu_time_total", "host"),
-                       ("self_device_time_total", "device")):
-        print(f"top {title} ops:")
-        for e in sorted(events, key=lambda e: -getattr(e, key))[:12]:
+    for rows, key, title in ((events, "self_cpu_time_total", "host ops"),
+                             (kernels, "self_device_time_total",
+                              "device kernels")):
+        print(f"top {title}:")
+        for e in sorted(rows, key=lambda e: -getattr(e, key))[:12]:
             print(f"  {getattr(e, key)/1e3:10.3f} ms  {e.count:7d}x  "
                   f"{e.key[:90]}")
 
@@ -153,7 +158,7 @@ def _run_continuous(scfg: TPServeConfig, args) -> None:
         dt = time.perf_counter() - t0
         if prof is not None:
             prof.__exit__(None, None, None)
-            _report_profile(prof, dt)
+            report_profile(prof, dt)
         toks = eng.tokens_emitted
         waits = sum(w for _, _, w in eng.comm_log)
         print(f"served {len(eng.finished)} requests / {toks} tokens in "

@@ -26,9 +26,9 @@ on the host.
   manifest re-prefill quantize every token against the *same* scale.
 
 The tiers map to ``torch.float32``/``bfloat16``/``int8``/``float8_e4m3fn``.
-Casts round to nearest even, as ``ml_dtypes`` does in the reference; for
-e4m3 values beyond ±464 the two differ (``ml_dtypes`` gives NaN, PyTorch's
-CPU cast saturates to ±448).
+Casts round to nearest even and give the reference's bytes for every
+input: :func:`to_e4m3` maps values beyond ±464 (and ±inf) to e4m3 NaN, as
+``ml_dtypes`` does, where PyTorch's own cast saturates to ±448.
 
 Example — two sequences through one pool::
 
@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from ..analysis.sanitizer import get_active as _sanitizer
-from ..devices import resolve_device, to_device
+from ..devices import resolve_device, to_device, true_div
 
 #: Bytes per stored element of each tier a pool can hold.
 KV_ITEMSIZE = {"f32": 4, "bf16": 2, "int8": 1, "fp8": 1}
@@ -84,7 +84,25 @@ def _absmax_scale(x: torch.Tensor) -> torch.Tensor:
     over the vector, mapped to the int8 grid (zero vectors get scale 1.0 so
     they stay exact zeros).  The one definition every write path uses."""
     amax = x.float().abs().amax(dim=-1)
-    return torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return torch.where(amax > 0, true_div(amax, 127), torch.ones_like(amax))
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """Cast to ``float8_e4m3fn`` as ``ml_dtypes`` does: round to nearest
+    even, and NaN (with the input's sign) for ``|x| > 464`` and ±inf, the
+    values that round past the format's ±448; PyTorch's cast saturates
+    those instead.
+
+    >>> to_e4m3(torch.tensor([448.0, 464.0, 465.0, -1e4])).view(torch.uint8).tolist()
+    [126, 126, 127, 255]
+    """
+    xf = x.float()
+    nan = torch.copysign(torch.full_like(xf, float("nan")), xf)
+    return torch.where(xf.abs() > 464.0, nan, xf).to(torch.float8_e4m3fn)
+
+
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return to_e4m3(x) if dtype == torch.float8_e4m3fn else x.to(dtype)
 
 
 def _quant_i8(x: torch.Tensor, scale) -> torch.Tensor:
@@ -279,8 +297,8 @@ class PagedKVCache:
             kp[:, pg, of] = kq.transpose(0, 1)
             vp[:, pg, of] = vq.transpose(0, 1)
         else:
-            kp[:, pg, of] = k.transpose(0, 1).to(kp.dtype)
-            vp[:, pg, of] = v.transpose(0, 1).to(vp.dtype)
+            kp[:, pg, of] = _cast(k.transpose(0, 1), kp.dtype)
+            vp[:, pg, of] = _cast(v.transpose(0, 1), vp.dtype)
 
     def gather(self, seq_id: int, layer: int | None = None,
                pad: bool = False):

@@ -75,6 +75,7 @@ import torch
 from ..core.communicator import Communicator
 from ..core.requests import Request
 from ..devices import resolve_device, to_device
+from .kv_cache import to_e4m3
 
 #: Rows per contraction tile (see the determinism contract).
 ROW_TILE = 16
@@ -422,7 +423,7 @@ class TPDecoder:
 #: identically at any world size ``P`` (see the reference).
 WIRE_I8_STEP = 16.0
 
-_WIRE_DTYPES = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn}
+_WIRE_DTYPES = {"bf16": torch.bfloat16}
 
 
 def _wire_codec(wire: str):
@@ -431,6 +432,8 @@ def _wire_codec(wire: str):
     to f32 (elementwise, so it commutes with the allgather reshapes)."""
     if wire == "f32":
         return (lambda x: x), (lambda x: x)
+    if wire == "fp8":  # NaN past ±464, as the reference's ml_dtypes cast
+        return to_e4m3, (lambda x: x.float())
     if wire in _WIRE_DTYPES:
         dt = _WIRE_DTYPES[wire]
         return (lambda x: x.to(dt)), (lambda x: x.float())

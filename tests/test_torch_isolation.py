@@ -1,5 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, importing it builds and
+``chip_smoke.py``) imports JAX, the JAX package or Triton (every kernel is
+CUDA C++ built by ``nvcc``), importing it builds and
 loads no kernel toolchain, its entry points refuse to fall back to the CPU
 when asked for the card, and its docstring examples run."""
 
@@ -22,7 +23,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     for p in PORT.rglob("*.py") if p.name != "__init__.py")
-FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes", "triton")
 
 
 def _env():
@@ -56,6 +57,9 @@ def test_engine_imports_with_jax_blocked_and_builds_nothing():
         "import repro_torch\n"
         "import repro_torch.serving.engine, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ops, repro_torch.core\n"
+        "import repro_torch.launch.train, repro_torch.training.train_step\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.kernels.quantize\n"
+        "import repro_torch.core.compression, repro_torch.models.lm\n"
         "bad = [m for m in ('triton', 'repro_torch.kernels._build')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n"
@@ -79,6 +83,20 @@ def test_entry_points_without_a_device_raise_without_cuda():
         ContinuousBatchingEngine(TPServeConfig(), device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedKVCache(1, 2, 4, 1, 4, 1)
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    cfg = configs.get_reduced("llama3.2-1b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(cfg)
+    for mode in ("xla", "fmi"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_train_step(cfg, TrainConfig(mode=mode), make_host_mesh(2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "llama3.2-1b", "--reduced", "--steps", "1"])
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -203,17 +203,42 @@ def test_page_bytes_tiers_match_reference():
 
 
 def test_fp8_cast_matches_ml_dtypes_in_range_and_records_the_rest():
-    """e4m3 casts: identical bytes for every value the format holds (round
-    to nearest even, ±448 max).  Beyond ±464 the two differ: ml_dtypes
-    gives NaN, PyTorch's CPU cast saturates to ±448."""
+    """e4m3 casts: the port's ``to_e4m3`` gives ml_dtypes' bytes for every
+    input — round to nearest even up to ±464, and NaN with the input's
+    sign beyond it and for ±inf.  The rest is recorded: PyTorch's own cast
+    saturates those values to ±448, which is why the port does not use it
+    bare."""
+    from repro_torch.serving.kv_cache import to_e4m3
+
     rng = np.random.default_rng(5)
-    x = np.concatenate([rng.normal(size=4096) * 50,
-                        [0.0, -0.0, 447.9, 448.0, 460.0, -463.0]]
+    x = np.concatenate([rng.normal(size=4096) * 50, rng.normal(size=512) * 1e3,
+                        [0.0, -0.0, 447.9, 448.0, 460.0, -463.0, 464.0,
+                         -464.0, 464.01, 465.0, 1000.0, -1e4, np.inf, -np.inf]]
                        ).astype(np.float32)
     ml = x.astype(ml_dtypes.float8_e4m3fn).view(np.uint8)
-    pt = torch.from_numpy(x).to(torch.float8_e4m3fn).view(torch.uint8).numpy()
+    pt = to_e4m3(torch.from_numpy(x)).view(torch.uint8).numpy()
     np.testing.assert_array_equal(pt, ml)
     big = np.array([465.0, 1000.0, -1e4], np.float32)
     assert np.isnan(big.astype(ml_dtypes.float8_e4m3fn).astype(np.float32)).all()
     sat = torch.from_numpy(big).to(torch.float8_e4m3fn).float().tolist()
     assert sat == [448.0, 448.0, -448.0]
+
+
+def test_fp8_out_of_range_writes_give_the_reference_pool_bytes():
+    """Values beyond ±464 (and ±inf) written through ``PagedKVCache`` in
+    both packages leave the same fp8 pool bytes: e4m3 NaN, not ±448."""
+    rng = np.random.default_rng(11)
+    ref = RKV(kv_dtype="fp8", **GEOM)
+    port = PKV(kv_dtype="fp8", device="cpu", **GEOM)
+    L, P, Hl, hd = GEOM["layers"], GEOM["world"], 2, 8
+    for kv in (ref, port):
+        kv.alloc(0, capacity=8)
+    k = _tokens(rng, L, P, 6, Hl, hd, scale=600.0)
+    v = _tokens(rng, L, P, 6, Hl, hd, scale=600.0)
+    k[0, 0, 0, 0, :3] = [np.inf, -np.inf, 464.0]
+    v[1, 1, 2, 1, :2] = [-465.0, 1e6]
+    assert (np.abs(k) > 464).any() and (np.abs(v) > 464).any()
+    ref.append(0, k, v)
+    _port_append(port, 0, k, v)
+    _assert_same_state(port, ref)
+    assert torch.isnan(port.k_pool.float()).any()
