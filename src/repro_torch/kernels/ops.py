@@ -3,8 +3,6 @@
 The reference picks the Pallas kernel on a TPU and its XLA twin elsewhere;
 here each wrapper dispatches on the tensor's device (a CPU tensor runs the
 plain PyTorch version, a CUDA tensor the hand-written Hopper kernel).
-``gla_scan`` and the per-page quantizers are not ported yet (ROADMAP
-Queue 2).
 """
 
 from __future__ import annotations
@@ -12,11 +10,14 @@ from __future__ import annotations
 import torch
 
 from . import flash_attention as _fa
+from .gla_scan import gla_scan
 from .paged_attention import paged_attention
-from .quantize import dequantize_blockwise, quantize_blockwise
+from .quantize import (dequantize_blockwise, dequantize_page,
+                       quantize_blockwise, quantize_page)
 
-__all__ = ["dequantize_blockwise", "flash_attention", "paged_attention",
-           "quantize_blockwise"]
+__all__ = ["dequantize_blockwise", "dequantize_page", "flash_attention",
+           "gla_scan", "paged_attention", "quantize_blockwise",
+           "quantize_page"]
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,

@@ -1,21 +1,25 @@
-"""Blockwise int8 quantize / dequantize (per-``block`` max-abs f32 scales).
+"""Int8 quantize / dequantize: blockwise (per-``block`` max-abs f32 scales)
+and per-(page, head) over KV pages.
 
 Port of the Pallas TPU kernels :mod:`repro.kernels.quantize`
-(``quantize_blockwise``, ``dequantize_blockwise``), the codec under the
-compressed gradient allreduce (:mod:`repro_torch.core.compression`).  The
-per-(page, head) KV variants ``quantize_page``/``dequantize_page`` are not
-ported yet (ROADMAP Queue 2).
+(``quantize_blockwise``, ``dequantize_blockwise``, the codec under the
+compressed gradient allreduce of :mod:`repro_torch.core.compression`;
+``quantize_page``, ``dequantize_page``, one scale per page and head of a
+``[n_pages, ps, H, d]`` pool, which no path of either package calls: the
+KV cache quantizes with its own write-once policy).
 
 * :func:`quantize_blockwise` / :func:`dequantize_blockwise` — the
   wrappers.  CUDA tensors launch the Hopper kernels of ``csrc/quantize.cu``
   (counted in ``<wrapper>.launches``); CPU tensors run the plain versions.
   Nothing falls back: a CUDA call the kernel does not take raises.
-* :func:`quantize_blockwise_plain` / :func:`dequantize_blockwise_plain` —
-  the plain PyTorch versions, the port of ``repro.kernels.ref``'s.
+* :func:`quantize_blockwise_plain` / :func:`dequantize_blockwise_plain`,
+  :func:`quantize_page_plain` / :func:`dequantize_page_plain` — the plain
+  PyTorch versions, the port of ``repro.kernels.ref``'s.
 * the contract, bit-exact with the reference: over ``[..., N]`` with
   ``N % block == 0``, ``scale = amax / 127`` (1 where ``amax == 0``),
   ``q = clip(rint(x / scale), -127, 127)`` as int8 (an IEEE division and
-  round-half-to-even), and ``x' = q * scale``.
+  round-half-to-even), and ``x' = q * scale``; the page pair the same
+  over each ``[ps, d]`` block of a page and head.
 
 >>> x = torch.tensor([[0.5, -1.0, 0.25, 0.0]])
 >>> q, s = quantize_blockwise(x, block=2)
@@ -68,6 +72,10 @@ def _lib():
         lib.quantize_blockwise_launch.restype = i
         lib.dequantize_blockwise_launch.argtypes = [p, p, p, i64, i64, i, i, p]
         lib.dequantize_blockwise_launch.restype = i
+        lib.quantize_page_launch.argtypes = [p, p, p, i64, i, i, i, i, p]
+        lib.quantize_page_launch.restype = i
+        lib.dequantize_page_launch.argtypes = [p, p, p, i64, i, i, i, i, p]
+        lib.dequantize_page_launch.restype = i
     return lib
 
 
@@ -128,6 +136,72 @@ def dequantize_blockwise(q, scale, block: int = 256, out_dtype=torch.float32):
     return out
 
 
+def quantize_page_plain(x):
+    """KV pages ``[n_pages, ps, H, d]`` → (int8 pages, f32 scales
+    ``[n_pages, H]``), one max-abs scale per (page, head)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(1, 3))
+    scale = torch.where(amax > 0, true_div(amax, 127), torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[:, None, :, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_page_plain(q, scale, out_dtype=torch.float32):
+    return (q.float() * scale[:, None, :, None]).to(out_dtype)
+
+
+def _pages(name, t):
+    if t.dim() != 4:
+        raise ValueError(f"{name} takes pages [n_pages, ps, H, d], got "
+                         f"{tuple(t.shape)}")
+    return t.shape
+
+
+def quantize_page(x):
+    """KV pages ``[n_pages, ps, H, d]`` f32/bf16 → (int8 pages, f32 scales
+    ``[n_pages, H]``).  CPU: plain version; CUDA: the kernel."""
+    if x.device.type == "cpu":
+        return quantize_page_plain(x)
+    _check_cuda("quantize_page", x, _IN_CODE)
+    n_pages, ps, H, d = _pages("quantize_page", x)
+    q = empty_for_kernel(x.shape, torch.int8, x.device)
+    scale = empty_for_kernel((n_pages, H), torch.float32, x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().quantize_page_launch(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), n_pages, ps, H, d,
+            _IN_CODE[x.dtype], stream_of(x))
+    if err != 0:
+        raise RuntimeError(f"quantize_page launch failed: cudaError_t {err}")
+    quantize_page.launches += 1
+    return q, scale
+
+
+def dequantize_page(q, scale, out_dtype=torch.float32):
+    """Inverse of :func:`quantize_page`: ``q * scale`` per (page, head) in
+    ``out_dtype`` (f32 or bf16).  CPU: plain version; CUDA: the kernel."""
+    if q.device.type == "cpu":
+        return dequantize_page_plain(q, scale, out_dtype)
+    _check_cuda("dequantize_page", q, {torch.int8})
+    _check_cuda("dequantize_page", scale, {torch.float32})
+    if out_dtype not in _IN_CODE:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, not {out_dtype}")
+    n_pages, ps, H, d = _pages("dequantize_page", q)
+    if tuple(scale.shape) != (n_pages, H) or scale.device != q.device:
+        raise ValueError(f"scale must be {(n_pages, H)} on {q.device}, got "
+                         f"{tuple(scale.shape)} on {scale.device}")
+    out = empty_for_kernel(q.shape, out_dtype, q.device)
+    with torch.cuda.device(q.device):
+        err = _lib().dequantize_page_launch(
+            q.data_ptr(), scale.data_ptr(), out.data_ptr(), n_pages, ps, H, d,
+            _IN_CODE[out_dtype], stream_of(q))
+    if err != 0:
+        raise RuntimeError(f"dequantize_page launch failed: cudaError_t {err}")
+    dequantize_page.launches += 1
+    return out
+
+
 #: Kernel launches since the process started (CUDA calls only).
 quantize_blockwise.launches = 0
 dequantize_blockwise.launches = 0
+quantize_page.launches = 0
+dequantize_page.launches = 0

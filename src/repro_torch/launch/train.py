@@ -8,9 +8,12 @@ Port of :mod:`repro.launch.train`, with the same flags plus ``--device``
 distribution modes run: ``xla`` (one replica over the global batch) and
 ``fmi`` (``--data-axis`` ranks stacked on the device, gradients averaged
 by an explicit FMI collective, ``--compression int8`` through the Hopper
-quantize kernels).  On the card, attention forward and backward go through
-the hand-written flash-attention kernels.  ``--reduced`` trains the
-smoke-sized config of the same family (runs on the CPU too)::
+quantize kernels).  It trains the dense family (llama3.2-1b, ...) and the
+ssm family (xlstm-125m).  On the card, attention forward and backward go
+through the hand-written flash-attention kernels, and every mLSTM layer's
+scan forward and backward through the gated-linear-attention scan
+kernels.  ``--reduced`` trains the smoke-sized config of the same family
+(runs on the CPU too)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --reduced --steps 4 --batch 4 --seq 64 --mode fmi --data-axis 2 \\

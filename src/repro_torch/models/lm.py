@@ -1,20 +1,26 @@
-"""The language model of the dense family, for training.
+"""The language model of the dense and ssm families, for training.
 
-Port of :mod:`repro.models.lm` (``padded_vocab``, ``init_params``,
-``_dense_block``, ``forward`` without a cache, ``loss_fn``,
-``count_params``).  The reference stacks each parameter of the layers on a
-leading group axis and scans over it; here the parameters live in an
-``nn.Module`` (:class:`LM`) with one submodule per layer, and
-``cfg.remat`` becomes ``torch.utils.checkpoint`` per layer
-(``use_reentrant=False``: backward recomputes the layer, saving only its
-input — the reference's ``nothing_saveable`` policy per group).  The other
-families (moe, vlm, ssm, hybrid, audio) raise, naming their ROADMAP item.
+Port of :mod:`repro.models.lm` (``padded_vocab``, ``init_params``, the
+dense and ssm group bodies, ``forward`` without a cache, ``loss_fn``,
+``count_params``).  The reference stacks each parameter of a scan group on
+a leading group axis and scans over it; here the parameters live in an
+``nn.Module`` (:class:`LM`) with one submodule per group, and
+``cfg.remat`` becomes ``torch.utils.checkpoint`` per group
+(``use_reentrant=False``: backward recomputes the group, saving only its
+input — the reference's ``nothing_saveable`` policy per group body).  A
+dense group is one layer (attention, MLP); an ssm group (xLSTM) is
+``slstm_every - 1`` mLSTM blocks and one sLSTM block
+(:mod:`repro_torch.models.ssm`).  The other families (moe, vlm, hybrid,
+audio) raise, naming their ROADMAP item.
 
 Parameter names follow the reference's tree: ``embed``, ``head`` (untied
-only), ``final_norm`` and ``layers.<g>.{ln1, ln2, attn.<w>, mlp.<w>}`` for
-``groups/<...>[g]``.  :func:`params_from_reference` converts the
-reference's ``init_params`` tree (nested dicts of numpy arrays) into them,
-and :func:`decayed` names the leaves the reference's AdamW decays.
+only), ``final_norm``, and ``layers.<g>.{ln1, ln2, attn.<w>, mlp.<w>}``
+(dense) or ``layers.<g>.mlstm.<i>.<w>`` and ``layers.<g>.slstm.<w>``
+(ssm) for ``groups/<...>[g]`` (``[g, i]`` for the mLSTM leaves, which the
+reference stacks ``[G, slstm_every - 1, ...]``).
+:func:`params_from_reference` converts the reference's ``init_params``
+tree (nested dicts of numpy arrays) into them, and :func:`decayed` names
+the leaves the reference's AdamW decays.
 
 >>> from repro_torch.models.config import ModelConfig
 >>> cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=16,
@@ -36,14 +42,16 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as ATT
 from . import moe as MOE
+from . import ssm as SSM
 from .config import ModelConfig
 from .layers import NO_SHARD, Axes, dense_init, embed_init, rmsnorm
 
+_PORTED = ("dense", "ssm")
 _FAMILIES = {
     "moe": "the moe family is not ported yet (ROADMAP Queue 1, item 13)",
     "vlm": "the vlm family is not ported yet (ROADMAP Queue 1, item 14)",
-    "ssm": "the ssm family is not ported yet (ROADMAP Queue 1, item 13)",
-    "hybrid": "the hybrid family is not ported yet (ROADMAP Queue 1, item 13)",
+    "hybrid": "the hybrid family is not ported yet (ROADMAP Queue 1, item "
+              "13; slice 4)",
     "audio": "the audio family is not ported yet (ROADMAP Queue 1, item 14)",
 }
 
@@ -53,7 +61,7 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in _PORTED:
         raise NotImplementedError(_FAMILIES.get(
             cfg.family, f"unknown family {cfg.family!r}"))
 
@@ -86,8 +94,43 @@ def _dense_block(p, x, cfg, ax, positions):
     return ax.act_btd(x)
 
 
+class ParamTree(nn.Module):
+    """A nested dict of tensors as parameters and submodules, read back
+    with ``p[name]`` as the reference reads its dicts."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v))
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+
+class XLSTMGroup(nn.Module):
+    """One ssm group: ``slstm_every - 1`` mLSTM blocks, then one sLSTM
+    block (each carries its own residual)."""
+
+    def __init__(self, p: dict):
+        super().__init__()
+        self.mlstm = nn.ModuleList(ParamTree(m) for m in p["mlstm"])
+        self.slstm = ParamTree(p["slstm"])
+
+    def forward(self, x, cfg: ModelConfig, ax: Axes, positions):
+        for m in self.mlstm:
+            x, _ = SSM.mlstm_apply(m, x, cfg, ax)
+        x, _ = SSM.slstm_apply(self.slstm, x, cfg, ax)
+        return x
+
+
+_GROUP = {"dense": DenseBlock, "ssm": XLSTMGroup}
+
+
 class LM(nn.Module):
-    """The dense LM's parameters (see the module docstring for names)."""
+    """The LM's parameters (see the module docstring for names)."""
 
     def __init__(self, cfg: ModelConfig, tensors: dict):
         super().__init__()
@@ -97,7 +140,8 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(tensors["head"])
         self.final_norm = nn.Parameter(tensors["final_norm"])
-        self.layers = nn.ModuleList(DenseBlock(g) for g in tensors["layers"])
+        group = _GROUP[cfg.family]
+        self.layers = nn.ModuleList(group(g) for g in tensors["layers"])
 
     def forward(self, tokens, ax: Axes = NO_SHARD):
         """``tokens [B, T]`` → logits ``[B, T, Vp]`` in the compute dtype."""
@@ -120,12 +164,23 @@ class LM(nn.Module):
         return ax.act_btv(logits)
 
 
+def _group_tensors(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """The tensors of one group, drawn in the reference's order."""
+    if cfg.family == "ssm":
+        n_m = cfg.ssm.slstm_every - 1
+        return {"mlstm": [SSM.mlstm_init(generator, cfg, device)
+                          for _ in range(n_m)],
+                "slstm": SSM.slstm_init(generator, cfg, device)}
+    ones = lambda: torch.ones((cfg.d_model,), dtype=cfg.pdtype, device=device)  # noqa: E731
+    return {"ln1": ones(), "attn": ATT.attn_init(generator, cfg, device),
+            "ln2": ones(), "mlp": MOE.mlp_init(generator, cfg, device=device)}
+
+
 def _tensors(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     D = cfg.d_model
     ones = lambda: torch.ones((D,), dtype=cfg.pdtype, device=device)  # noqa: E731
-    layers = [{"ln1": ones(), "attn": ATT.attn_init(generator, cfg, device),
-               "ln2": ones(), "mlp": MOE.mlp_init(generator, cfg, device=device)}
-              for _ in range(cfg.n_layers)]
+    layers = [_group_tensors(cfg, generator, device)
+              for _ in range(cfg.n_groups)]
     out = {"layers": layers, "final_norm": ones(),
            "embed": embed_init(generator, (padded_vocab(cfg), D), cfg.pdtype,
                                device=device)}
@@ -162,11 +217,19 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> LM:
         a = a if g is None else a[g]
         return torch.tensor(a, device=device).to(cfg.pdtype)
 
+    def sub(node, g):  # the [g] slice of a (nested) stacked subtree
+        if isinstance(node, dict):
+            return {k: sub(a, g) for k, a in node.items()}
+        return t(node, g)
+
     groups = tree["groups"]
-    layers = [{"ln1": t(groups["ln1"], g), "ln2": t(groups["ln2"], g),
-               "attn": {k: t(a, g) for k, a in groups["attn"].items()},
-               "mlp": {k: t(a, g) for k, a in groups["mlp"].items()}}
-              for g in range(cfg.n_groups)]
+    if cfg.family == "ssm":
+        n_m = cfg.ssm.slstm_every - 1
+        layers = [{"mlstm": [sub(groups["mlstm"], (g, i)) for i in range(n_m)],
+                   "slstm": sub(groups["slstm"], g)}
+                  for g in range(cfg.n_groups)]
+    else:
+        layers = [sub(groups, g) for g in range(cfg.n_groups)]
     tensors = {"layers": layers, "final_norm": t(tree["final_norm"]),
                "embed": t(tree["embed"])}
     if "head" in tree:
@@ -176,21 +239,34 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> LM:
 
 
 def reference_path(name: str) -> tuple:
-    """The reference tree path of a port parameter name, with the group
-    index of a layer leaf last: ``layers.3.attn.wq`` → ``('groups',
-    'attn', 'wq', 3)``."""
+    """The reference tree path of a port parameter name, with the index of
+    a layer leaf into its stacked array last: ``layers.3.attn.wq`` →
+    ``('groups', 'attn', 'wq', 3)``, ``layers.1.mlstm.2.conv.w`` →
+    ``('groups', 'mlstm', 'conv', 'w', (1, 2))``."""
     parts = name.split(".")
     if parts[0] != "layers":
         return tuple(parts)
+    if parts[2] == "mlstm":
+        return ("groups", "mlstm", *parts[4:], (int(parts[1]), int(parts[3])))
     return ("groups", *parts[2:], int(parts[1]))
+
+
+def _stack_axes(name: str) -> int:
+    """Leading axes the reference's stacked tree puts before this leaf:
+    the group axis for a layer leaf, and the block axis too for mLSTM."""
+    if not name.startswith("layers."):
+        return 0
+    return 2 if name.split(".")[2] == "mlstm" else 1
 
 
 def decayed(name: str, p: torch.Tensor) -> bool:
     """Whether the reference's AdamW decays this leaf.  It decays leaves
     with ``ndim >= 2`` of its stacked tree, and every layer leaf is stacked
-    on the group axis: so the per-layer norms (``ln1``, ``ln2``,
-    ``q_norm``, ``k_norm``) are decayed and ``final_norm`` is not."""
-    return p.dim() + (1 if name.startswith("layers.") else 0) >= 2
+    on the group axis (mLSTM leaves on the block axis too): so the
+    per-layer norms (``ln1``, ``ln2``, ``q_norm``, ``k_norm``, the mLSTM's
+    ``norm``/``out_norm``, the sLSTM's ``norm``/``ffn_norm``) are decayed
+    and ``final_norm`` is not."""
+    return p.dim() + _stack_axes(name) >= 2
 
 
 # ---------------------------------------------------------------------------
@@ -253,16 +329,30 @@ def loss_fn(logits, labels, cfg: ModelConfig, aux=0.0, z_loss: float = 1e-4,
 # ---------------------------------------------------------------------------
 
 
-def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Total parameters of the dense family, from the shapes alone."""
-    _check_family(cfg)
-    D, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
+def _group_params(cfg: ModelConfig) -> int:
+    D = cfg.d_model
+    if cfg.family == "ssm":
+        s, H = cfg.ssm, cfg.n_heads
+        di = int(s.proj_factor * D)
+        mlstm = (D + D * 2 * di + s.conv_kernel * di + 3 * di * di
+                 + di * 2 * H + di + di * D)
+        dh, ffd = D // H, max(1, int(4 / 3 * D))
+        slstm = D + D * 4 * D + H * dh * 4 * dh + 2 * D * ffd + D
+        return (s.slstm_every - 1) * mlstm + slstm
+    F, hd = cfg.d_ff, cfg.hd
     attn = D * cfg.n_heads * hd * 2 + D * cfg.n_kv_heads * hd * 2
     if cfg.qk_norm:
         attn += 2 * hd
-    layer = 2 * D + attn + 3 * D * F
+    return 2 * D + attn + 3 * D * F
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Total parameters of the dense and ssm families, from the shapes
+    alone."""
+    _check_family(cfg)
+    D = cfg.d_model
     Vp = padded_vocab(cfg)
-    total = cfg.n_layers * layer + D + Vp * D
+    total = cfg.n_groups * _group_params(cfg) + D + Vp * D
     if not cfg.tie_embeddings:
         total += D * Vp
     return int(total)

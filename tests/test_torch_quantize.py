@@ -1,8 +1,9 @@
-"""The port's blockwise int8 quantizers against the JAX package's Pallas
-kernels in interpret mode and its ``repro.kernels.ref`` oracles, with the
-sweep and bounds of tests/test_kernels.py: bit-exact in f32, |Δq| ≤ 1 on
+"""The port's int8 quantizers against the JAX package's Pallas kernels in
+interpret mode and its ``repro.kernels.ref`` oracles, with the sweep and
+bounds of tests/test_kernels.py: blockwise bit-exact in f32, |Δq| ≤ 1 on
 under 1% of entries in bf16, scales within rtol 1e-6, the round-trip bound,
-exact zero blocks.  The CUDA kernels run only on the card
+exact zero blocks; per-(page, head) bit-exact on the reference's page
+shapes (tests/test_kernels.py:351) in f32 and bf16, zero pages exact.  The CUDA kernels run only on the card
 (``chip_smoke.py`` holds them bit-exact against the plain versions there);
 their test here skips."""
 
@@ -17,11 +18,14 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.quantize import dequantize_blockwise as dq_pallas  # noqa: E402
+from repro.kernels.quantize import dequantize_page as dqp_pallas  # noqa: E402
 from repro.kernels.quantize import quantize_blockwise as q_pallas  # noqa: E402
+from repro.kernels.quantize import quantize_page as qp_pallas  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 
 SWEEP = [(8, 1024, 256), (3, 512, 128), (16, 4096, 256), (1, 256, 256)]
+PAGE_SHAPES = [(6, 8, 2, 16), (3, 4, 4, 8)]  # tests/test_kernels.py:351
 CUDA_REASON = "needs an NVIDIA GPU; chip_smoke.py covers it"
 
 
@@ -133,3 +137,62 @@ def test_cuda_kernels_bit_exact_vs_plain(dtype):
     assert torch.equal(q1, q2) and torch.equal(s1, s2)
     assert torch.equal(qz.dequantize_blockwise(q1, s1, 256),
                        qz.dequantize_blockwise_plain(q2, s2, 256))
+
+
+def _pages(shape, dtype, seed=0):
+    a = np.random.default_rng(seed).normal(size=shape).astype(np.float32) * 3
+    a[0, :, -1] = 0  # one (page, head) of zeros
+    return _both(a if dtype == "f32" else
+                 np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32), dtype)
+
+
+@pytest.mark.parametrize("shape", PAGE_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_page_plain_bit_exact_vs_pallas_interpret_and_oracle(shape, dtype):
+    xt, xj = _pages(shape, dtype)
+    q1, s1 = qz.quantize_page_plain(xt)
+    assert q1.dtype == torch.int8 and tuple(s1.shape) == (shape[0], shape[2])
+    q2, s2 = ref.quantize_page(xj)
+    np.testing.assert_array_equal(q1.numpy(), np.asarray(q2))
+    np.testing.assert_array_equal(s1.numpy(), np.asarray(s2))
+    # the Pallas kernel's scales may sit one ulp off the oracle's; the
+    # reference holds them to rtol 1e-6 (tests/test_kernels.py:357)
+    q3, s3 = qp_pallas(xj, interpret=True)
+    np.testing.assert_array_equal(q1.numpy(), np.asarray(q3))
+    np.testing.assert_allclose(s1.numpy(), np.asarray(s3), rtol=1e-6)
+    assert float(s1[0, -1]) == 1.0 and (q1[0, :, -1] == 0).all()
+    for out_t, out_j in ((torch.float32, jnp.float32),
+                         (torch.bfloat16, jnp.bfloat16)):
+        d1 = qz.dequantize_page_plain(q1, s1, out_t).float().numpy()
+        d2 = np.asarray(ref.dequantize_page(q2, s2, out_j), np.float32)
+        np.testing.assert_array_equal(d1, d2)
+    d3 = np.asarray(dqp_pallas(q2, s2, interpret=True))
+    np.testing.assert_allclose(qz.dequantize_page_plain(q1, s1).numpy(), d3,
+                               rtol=1e-6)
+
+
+def test_page_zero_pool_is_exact_and_the_wrapper_runs_plain_on_cpu():
+    x = torch.zeros((2, 4, 2, 8))
+    before = (qz.quantize_page.launches, qz.dequantize_page.launches)
+    for quant, dequant in ((qz.quantize_page, qz.dequantize_page),
+                           (ops.quantize_page, ops.dequantize_page)):
+        q, s = quant(x)
+        assert (q == 0).all() and (s == 1.0).all()
+        assert (dequant(q, s) == 0).all()
+    assert (qz.quantize_page.launches, qz.dequantize_page.launches) == before
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        qz.quantize_page(torch.ones((2, 4, 2, 8), device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_page_kernels_bit_exact_vs_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip(CUDA_REASON)
+    xt, _ = _pages((64, 8, 4, 128), dtype)
+    xt = xt.cuda()
+    q1, s1 = qz.quantize_page(xt)
+    q2, s2 = qz.quantize_page_plain(xt)
+    assert torch.equal(q1, q2) and torch.equal(s1, s2)
+    assert torch.equal(qz.dequantize_page(q1, s1),
+                       qz.dequantize_page_plain(q2, s2))
