@@ -16,9 +16,11 @@ PyTorch version on the card, and drives the port's two paths:
 * training — ``python -m repro_torch.launch.train`` at the published
   widths and depth of llama3.2-1b in ``fmi`` mode (2 data-parallel ranks
   on the card, ring allreduce), attention forward and backward through the
-  flash-attention kernels — and its contract at 4 layers (``fmi`` at world
-  1/2/4 against ``xla``, recursive doubling against ring, the int8
-  compressed allreduce through the quantize kernels, card against CPU);
+  flash-attention kernels (bf16 on the tensor cores: ``wgmma`` fed by TMA;
+  the f32 calls of the contract on the SIMT kernels) — and its contract at
+  4 layers (``fmi`` at world 1/2/4 against ``xla``, recursive doubling
+  against ring, the int8 compressed allreduce through the quantize
+  kernels, card against CPU);
 * ssm training — the same launcher at the published widths and depth of
   xlstm-125m (``fmi``, 2 ranks), every mLSTM layer forward and backward
   through the gated-linear-attention scan kernels — and its contract at 8
@@ -54,6 +56,7 @@ import argparse  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -82,6 +85,11 @@ TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--mode", "fmi", "--data-axis",
               str(TRAIN_P), "--allreduce", "ring", "--batch", "4", "--seq",
               "2048", "--steps", str(TRAIN_STEPS)]
 TRAIN_RECKONED_PEAK_GB = 58.0  # params, moments, stacked grads, ring copies
+TRAIN_PEAK_LIMIT_GB = 60.5
+# ce after the 8th step with the f32 SIMT flash kernels (12.1841 -> 9.5811
+# on an H100); the bf16 kernels round p and ds to bf16 before their
+# products, which may move it by a little
+TRAIN_CE_LAST, TRAIN_CE_TOL = 9.5811, 0.05
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 # flash attention sweep of tests/test_kernels.py (B, Hq, Hkv, T, S, d,
 # causal, window, q_offset) and its tolerances
@@ -96,6 +104,12 @@ ATT_CASES = [
     (2, 4, 2, 100, 100, 16, True, 0, 0),
 ]
 ATT_ATOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+# at the training shape each 64-row block of every head is also held to its
+# own norm: ||kernel - plain|| / ||plain|| (see block_rel_err).  On an H100
+# the kernels read 2.4e-3 (out) and 3.9e-3 to 5.1e-3 (dq, dk, dv); dK/dV
+# kernels that skip one q head, or q rows 1024-1087 of one head, read 0.55
+# and 0.18
+ATT_BLOCK_REL = 2e-2
 # the training shape of one rank's attention call (B, Hq, Hkv, T, d)
 ATT_TRAIN = (2, 32, 8, 2048, 64)
 # the ssm training path: xlstm-125m at its published widths and depth, fmi
@@ -604,12 +618,140 @@ def time_bwd_ms(forward, inputs, dout, iters: int) -> float:
     return total / iters
 
 
+def events_ms(fn, sets, iters: int) -> float:
+    """CUDA-event ms per call of ``fn(*sets[i % len(sets)])``.  With one set
+    every call finds its inputs in the L2 cache; with sets that together
+    exceed it, each call finds its inputs evicted."""
+    for s in sets:
+        fn(*s)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def block_rel_err(a, b, rows: int = 64) -> float:
+    """The largest ||a - b|| / ||b|| over the blocks of ``rows`` consecutive
+    rows of each head of two [..., T, d] tensors (0 where both blocks are
+    zero).  A limit scaled by max|b| is set, under causal masking, by the
+    first keys, which every row sees: it would pass a kernel that dropped
+    the work of a late key block or of one head.  This holds every block to
+    its own size."""
+    a, b = (torch.nn.functional.pad(t.detach().float(),
+                                    (0, 0, 0, (-t.shape[-2]) % rows))
+            .unflatten(-2, (-1, rows)).flatten(-2) for t in (a, b))
+    num, den = (a - b).norm(dim=-1), b.norm(dim=-1)
+    rel = torch.where(den > 0, num / den.clamp_min(1e-30),
+                      torch.where(num > 0, torch.inf, 0.0))
+    return float(rel.max())
+
+
+def ptxas_kernel(line: str) -> str:
+    """The kernel that a ptxas ``Compiling entry function '<mangled>'``
+    line names, with its dtype and head dim where it has them."""
+    m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(f|13__nv_bfloat16)?Li(\d+)E)?",
+                  line)
+    if m is None:
+        return line.strip()[-60:]
+    args = [a for a in ({"f": "f32", "13__nv_bfloat16": "bf16"}.get(m[2]),
+                        m[3]) if a]
+    return m[1] + (f"<{', '.join(args)}>" if args else "")
+
+
+def short_name(kernel: str) -> str:
+    """A kernel's name without its namespaces, template arguments and
+    parameters."""
+    m = re.search(r"(\w+)(?:<[^()]*>)?\(", kernel)
+    return m.group(1) if m else kernel[:60]
+
+
+def device_kernels(fn, iters: int = 3) -> list[str]:
+    """Names of the device kernels that ``iters`` calls of ``fn`` launched
+    (traced as ``time_ms`` traces, host and device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
 def bound(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
     """(least ms, what bounds it): the larger of the bytes over the device
     memory rate and the operations over ``rate``."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = flops / rate * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def check_tile_plan(fa) -> int:
+    """The bf16 flash kernels' skip ranges and tile classes, from the
+    library's own Mask functions (``fa.tile_plan``), against the element
+    mask over ``ATT_CASES`` and a sweep of lengths, offsets and windows:
+    every skipped tile holds no visible (q, k) pair, every kept range is
+    tight, every tile classed full is visible whole.  Returns the number
+    of (shape, head dim) plans checked."""
+    shapes = {(c[3], c[4], c[6], c[7], c[8]) for c in ATT_CASES}
+    shapes |= {(T, S, causal, window, off) for T in (1, 63, 64, 65, 130)
+               for S in (1, 64, 100, 129, 300) for off in (0, 1, 64, 200)
+               for window in (0, 1, 17, 64, 100) for causal in (True, False)}
+    n = 0
+    for T, S, causal, window, off in sorted(shapes):
+        qpos, kpos = off + np.arange(T)[:, None], np.arange(S)[None]
+        vis = kpos < S
+        if causal:
+            vis = vis & (kpos <= qpos)
+        if window:
+            vis = vis & (kpos > qpos - window)
+        vis = np.broadcast_to(vis, (T, S))
+        for d in fa.HEAD_DIMS:
+            plan = {k: v.numpy() if torch.is_tensor(v) else v
+                    for k, v in fa.tile_plan(T, S, d, causal, window,
+                                             off).items()}
+            where = (T, S, causal, window, off, d)
+            for i, (lo, hi) in enumerate(plan["kv"]):  # forward and dQ
+                rows = vis[64 * i:64 * i + 64]
+                need = np.flatnonzero(rows.any(0)) // 64
+                want = ((int(need.min()), int(need.max()) + 1) if need.size
+                        else (0, 0))
+                if (lo, hi) != want:
+                    raise AssertionError(f"flash tile plan {where}: q block "
+                                         f"{i} walks kv tiles [{lo}, {hi}), "
+                                         f"needs {want}")
+                for t in np.flatnonzero(plan["kv_full"][i]):
+                    if not (lo <= t < hi and 64 * t + 64 <= S
+                            and rows[:, 64 * t:64 * t + 64].all()):
+                        raise AssertionError(f"flash tile plan {where}: kv "
+                                             f"tile {t} of q block {i} "
+                                             f"classed full")
+            bq = plan["bq"]
+            for j, (lo, hi) in enumerate(plan["qt"]):  # dK/dV
+                need = np.flatnonzero(vis[:, 64 * j:64 * j + 64].any(1))
+                want = ((int(need.min()) // bq, -(-(int(need.max()) + 1) // bq))
+                        if need.size else (lo, lo))
+                if (lo, hi) != want:
+                    raise AssertionError(f"flash tile plan {where}: key "
+                                         f"block {j} walks q tiles [{lo}, "
+                                         f"{hi}), needs {want}")
+                for t in np.flatnonzero(plan["q_full"][j]):
+                    if not (lo <= t < hi and bq * t + bq <= T
+                            and 64 * j + 64 <= S and
+                            vis[bq * t:bq * t + bq, 64 * j:64 * j + 64].all()):
+                        raise AssertionError(f"flash tile plan {where}: q "
+                                             f"tile {t} of key block {j} "
+                                             f"classed full")
+            n += 1
+    return n
 
 
 def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
@@ -622,6 +764,10 @@ def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
         t = torch.randn(shape, generator=g).to(dt).to(dev)
         return t.requires_grad_(True) if grad else t
 
+    log("train_kernel", f"flash_attention bf16 tile plan (the kernels' own "
+                        f"Mask functions, run on the host) against the "
+                        f"element mask: {check_tile_plan(fa)} (shape, head "
+                        f"dim) plans, ranges tight, full tiles visible whole")
     fwd_err = bwd_err = 0.0
     for dt in (torch.float32, torch.bfloat16):
         for case in ATT_CASES:
@@ -724,11 +870,50 @@ def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
                                  f"max err {e} > {tol}")
         errs.append(f"d{name} {e:.3e} (tol {tol:.3e})")
         bwd_err = max(bwd_err, e)
-    del got, want, grads, refs
     log("train_kernel", f"flash_attention at the training shape B={B} Hq={Hq} "
                         f"Hkv={Hkv} T=S={T} d={d} causal bf16 vs plain: "
                         f"forward {err:.3e} (atol 3e-2); {', '.join(errs)}")
+    rels = {"out": block_rel_err(got, want)}
+    rels.update({f"d{n}": block_rel_err(a, b)
+                 for n, a, b in zip("qkv", grads, refs)})
+    for name, e in rels.items():
+        if not e <= ATT_BLOCK_REL:
+            raise AssertionError(f"flash {name} {ATT_TRAIN} bf16: a 64-row "
+                                 f"block is {e} of its norm off plain "
+                                 f"> {ATT_BLOCK_REL}")
+    # controls: dK and dV are linear in dO, so a dK/dV kernel that skipped
+    # one q head of a group, or one q tile of one head, would give what the
+    # kernel gives for dO zeroed there.  Each must fail the block check
     out, lse = fa.flash_attention_fwd(q, k, v, True, 0, 0)
+    controls = []
+    for what, where in (("q head 1 skipped", (slice(None), 1)),
+                        ("q rows 1024-1087 of head 0 skipped",
+                         (slice(None), 0, slice(1024, 1088))),
+                        ("q rows 1984-2047 of head 0 skipped",
+                         (slice(None), 0, slice(1984, 2048)))):
+        bad = dout.clone()
+        bad[where] = 0
+        _, dk_bad, dv_bad = fa.flash_attention_bwd(q, k, v, out, bad, lse,
+                                                   True, 0, 0)
+        e = max(block_rel_err(dk_bad, refs[1]), block_rel_err(dv_bad, refs[2]))
+        if e <= ATT_BLOCK_REL:
+            raise AssertionError(f"flash block check passes a dK/dV kernel "
+                                 f"with {what} ({e} <= {ATT_BLOCK_REL})")
+        loose = []
+        for n, a, b in (("dk", dk_bad, refs[1]), ("dv", dv_bad, refs[2])):
+            ok = float((a.float() - b.float()).abs().max()) <= \
+                2e-2 * float(b.float().abs().max())
+            loose.append(f"{n} {'passes' if ok else 'fails'}")
+        controls.append(f"{what} {e:.3e} (2e-2 x max|ref|: "
+                        f"{', '.join(loose)})")
+        del bad, dk_bad, dv_bad
+    del got, want, grads, refs
+    log("train_kernel", f"flash_attention at the training shape, largest "
+                        f"||kernel - plain|| / ||plain|| over 64-row blocks of "
+                        f"each head: "
+                        f"{', '.join(f'{n} {e:.3e}' for n, e in rels.items())} "
+                        f"(limit {ATT_BLOCK_REL}); controls fail it: "
+                        f"{'; '.join(controls)}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     f_times = {}
     with torch.no_grad():
@@ -781,6 +966,59 @@ def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
                         f"{b_times['plain']:.6f}/{b_times['plain2']:.6f}, SDPA "
                         f"backward {b_times['library']:.6f} ({lib_note}); "
                         f"bound {b_bound:.6f} ({b_by})")
+
+    # the kernels with the L2 cache warm and cold: input sets that together
+    # exceed the 50 MB L2
+    f_sets = [(rnd((B, Hq, T, d), bf), rnd((B, Hkv, T, d), bf),
+               rnd((B, Hkv, T, d), bf)) for _ in range(4)]
+    b_sets = [(*qkv, *fa.flash_attention_fwd(*qkv, True, 0, 0),
+               rnd((B, Hq, T, d), bf)) for qkv in f_sets[:3]]
+
+    def f_call(qs, ks, vs):
+        return fa.flash_attention_fwd(qs, ks, vs, True, 0, 0)
+
+    def b_call(qs, ks, vs, os_, ls, gs_):
+        return fa.flash_attention_bwd(qs, ks, vs, os_, gs_, ls, True, 0, 0)
+
+    f_warm, f_cold = (events_ms(f_call, f_sets[:n], 40) for n in (1, 4))
+    b_warm, b_cold = (events_ms(b_call, b_sets[:n], 30) for n in (1, 3))
+    f_mb = sum(t.nbytes for t in f_sets[0]) * len(f_sets) / 1e6
+    b_mb = sum(t.nbytes for t in b_sets[0]) * len(b_sets) / 1e6
+    log("train_kernel", f"flash_attention at the training shape, CUDA-event "
+                        f"ms per call, L2 warm (one input set) / cold (inputs "
+                        f"cycled over {f_mb:.1f} / {b_mb:.1f} MB): forward "
+                        f"{f_warm:.6f} / {f_cold:.6f}; backward kernels "
+                        f"alone {b_warm:.6f} / {b_cold:.6f}")
+    del f_sets, b_sets
+
+    # which kernels each dtype's route launched (device kernel names of
+    # forward and backward calls)
+    for dt, shape, want, refuse in (
+            (bf, (B, Hq, Hkv, T, d), ("flash_fwd_tc_kernel",
+                                      "flash_bwd_dkdv_tc_kernel",
+                                      "flash_bwd_dq_tc_kernel"),
+             ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+              "flash_bwd_dq_kernel")),
+            (torch.float32, (2, 4, 2, 256, 64), ("flash_fwd_kernel",
+                                                  "flash_bwd_dkdv_kernel",
+                                                  "flash_bwd_dq_kernel"),
+             ("_tc_kernel",))):
+        b_, hq_, hk_, t_, d_ = shape
+        qs, ks, vs = (rnd((b_, hq_, t_, d_), dt), rnd((b_, hk_, t_, d_), dt),
+                      rnd((b_, hk_, t_, d_), dt))
+
+        def both():
+            o_, l_ = fa.flash_attention_fwd(qs, ks, vs, True, 0, 0)
+            fa.flash_attention_bwd(qs, ks, vs, o_, torch.ones_like(o_), l_,
+                                   True, 0, 0)
+
+        names = device_kernels(both)
+        short = sorted({short_name(n) for n in names})
+        if not all(any(w in n for n in names) for w in want) or \
+                any(r in n for r in refuse for n in names):
+            raise AssertionError(f"flash {dt} route launched {short}")
+        log("train_kernel", f"flash_attention {dt} route launched: "
+                            f"{', '.join(short)}")
 
     # the quantizers at the int8 path's chunk: [P, 1, c] of the 4-layer
     # model's padded f32 gradients over 4 ranks
@@ -893,7 +1131,13 @@ def phase_train(fa) -> dict:
     if not hist[-1]["ce"] < hist[0]["ce"]:
         raise AssertionError(f"ce did not fall: {hist[0]['ce']} -> "
                              f"{hist[-1]['ce']}")
+    if abs(hist[-1]["ce"] - TRAIN_CE_LAST) > TRAIN_CE_TOL:
+        raise AssertionError(f"ce at step {TRAIN_STEPS} is {hist[-1]['ce']}, "
+                             f"not within {TRAIN_CE_TOL} of {TRAIN_CE_LAST}")
     peak = max(h.get("peak_bytes", 0) for h in hist)
+    if peak > TRAIN_PEAK_LIMIT_GB * 1e9:
+        raise AssertionError(f"peak device memory {peak / 1e9:.3f} GB > "
+                             f"{TRAIN_PEAK_LIMIT_GB} GB")
     steady = hist[1:]
     step_ms = sum(h["time_s"] for h in steady) / len(steady) * 1e3
     tok_s = sum(h["tokens_per_s"] for h in steady) / len(steady)
@@ -1555,9 +1799,12 @@ def main(argv=None) -> int:
                  f"{time.perf_counter() - t0:.2f}s: "
                  f"{', '.join(sorted(libs))}")
     for name, rec in _build.BUILD_LOG.items():
+        kernel = "?"
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = ptxas_kernel(line)
+            elif "registers" in line or "spill" in line:
+                log("build", f"{name}: {kernel}: {line.strip()}")
 
     # 3. kernel vs plain, invariances, timings (serving, then training)
     t0 = time.perf_counter()

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from ..analysis.sanitizer import get_active as _sanitizer
-from ..devices import to_device
+from ..devices import resolve_device, to_device
 
 Perm = Sequence[tuple[int, int]]
 
@@ -255,7 +255,8 @@ class ChannelTrace:
 
 class SimTransport(Transport):
     """All ranks in lockstep on stacked ``[P, *shape]`` tensors on
-    ``device``.
+    ``device`` (``None``: the card, or raise when there is none; pass
+    ``device="cpu"`` for the CPU).
 
     Fault injection: :meth:`kill` marks a rank failed (optionally after a
     number of further rounds, to land the failure mid-collective); any
@@ -273,9 +274,9 @@ class SimTransport(Transport):
 
     stacked = True
 
-    def __init__(self, size: int, device: str | torch.device = "cpu"):
+    def __init__(self, size: int, device: str | torch.device | None = None):
         self.size = int(size)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.trace = ChannelTrace()
         self._dead: set[int] = set()
         self._kill_at: dict[int, int] = {}  # rank -> rounds until failure

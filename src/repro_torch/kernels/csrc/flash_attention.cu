@@ -4,7 +4,7 @@
 // (flash_attention, body _flash_kernel).  The forward computes the same
 // function:
 //
-//   s_ij  = (q_i * sm_scale) . k_j                       f32
+//   s_ij  = (q_i . k_j) * sm_scale                       f32
 //   mask  = k_j < S  [and k_j <= q_i (causal)]  [and k_j > q_i - window]
 //           with q positions shifted by q_offset; masked scores are -1e30
 //           and get probability +0.0
@@ -22,46 +22,72 @@
 //   p_ij  = exp(s_ij - lse_i)  (masked -> 0)
 //   dv_j  = sum_i p_ij dout_i
 //   ds_ij = p_ij (dout_i . v_j - D_i)
-//   dk_j  = sum_i ds_ij (q_i * sm_scale)
+//   dk_j  = sm_scale * sum_i ds_ij q_i
 //   dq_i  = sm_scale * sum_j ds_ij k_j
 //
 // What bounds it on this card: operations.  At the training shape (B 2,
 // Hq 32, T = S = 2048, d 64, causal) the forward does ~34 GFLOP on ~40 MB,
-// far above the ~295 flop/byte where bf16 tensor cores stop being the
-// limit; this kernel uses the f32 SIMT units (67 TFLOP/s), not the tensor
-// cores, so it sits well above the tensor-core bound.
+// far above the ~295 flop/byte where the bf16 tensor cores stop being the
+// limit.  Two routes, chosen by dtype alone:
 //
-// Design.  The TPU kernel walks a (b*h, q-block, kv-block) grid with the kv
-// axis sequential and carries (m, l, acc) in VMEM scratch; blocks here run
-// in parallel and in no order, so:
-//   * forward: one thread block per (b*hq, q-block) loops over its kv tiles
-//     itself.  Each q row belongs to TPR adjacent threads (TPR = d / 64 for
-//     d = 128, else 1), each holding its slice of q and acc in registers;
-//     the row's scores over a 32-key tile stay in registers, partial dot
-//     products meet through warp shuffles (a butterfly of adds, so every
-//     thread of a row holds the same bits).  K and V tiles are staged in
-//     shared memory as f32 and read as 16-byte broadcasts.
-//   * kv tiles that no row of the block can see (causal future, left of the
-//     window, past S) are skipped: a fully masked tile leaves (m, l, acc)
-//     unchanged, so skipping is exact.
-//   * backward, deterministic, no floating-point atomics:
-//       - one launch per (b*hkv, kv-block): each thread owns one key (split
-//         over TPR = d / 32 threads) and accumulates dk and dv in registers
-//         over the q tiles of all Hq/Hkv heads of its group, in a fixed
-//         order;
-//       - one launch per (b*hq, q-block): each thread owns one q row and
-//         accumulates dq over the kv tiles in order.
-//     D = rowsum(dout * out) is computed by a preprocess kernel into f32
-//     scratch first.
-//   * inputs are f32 or bf16, converted to f32 on load; every score,
-//     probability and accumulator is f32; outputs are in the input dtype
-//     (bf16 by round-to-nearest-even).
-// It uses no tensor cores, TMA or wgmma: a simple kernel that is right.
-// Built without fast math: expf and logf are the accurate ones.
+// * bf16 (namespace tc): the tensor cores.  Every block is one consumer
+//   warpgroup (128 threads, 64 rows of wgmma) and one producer warp.  The
+//   producer's TMA loads fill a 2-stage ring of tiles in shared memory, an
+//   mbarrier pair per stage marking it full and empty, while the warpgroup
+//   runs wgmma.mma_async on the tiles that have arrived.  Tensors are seen
+//   by 3-D tensor maps [B*H, T|S, d], so a ragged tail zero-fills inside
+//   its own head.  Rows are swizzled over min(d, 64) columns (32 B at d 16,
+//   64 B at d 32, 128 B at d >= 64; d 128 is two 64-column halves), and
+//   the wgmma descriptors read the same layout K-major or, for the
+//   operand reduced along its rows (V, dO, Q, K), MN-major.
+//     - forward: one block per (b*hq, 64 q rows); Q loaded once, K and V
+//       tiles of 64 keys.  S = Q K^T with both operands in shared memory;
+//       the online softmax stays in registers, a row's max and sum meeting
+//       across the 4 threads that share it through shuffles in a fixed
+//       order; P goes to bf16 in registers and is the register A operand
+//       of O += P V.  One warpgroup of 64 rows (not two): 2048 blocks at
+//       the training shape keep every SM busy, and at ~100 registers a
+//       thread three blocks share an SM, so one block's softmax overlaps
+//       another's products.
+//     - backward, deterministic (no atomics; the same inputs give the
+//       same bits): the delta kernel; a dK/dV kernel, one block per
+//       (b*hkv, 64 keys), K and V resident, walking the group's q heads
+//       and each head's visible q tiles (64 rows, 32 at d 128) in order:
+//       S^T = K Q^T, P^T, dV += P^T dO, dP^T = V dO^T, dS^T, dK += dS^T Q;
+//       and a dQ kernel, one block per (b*hq, 64 q rows), Q and dO
+//       resident, walking its visible kv tiles of 64 keys in order: S, P,
+//       dP = dO V^T, dS, dQ += dS K.  That is 7 products where the bound
+//       counts 5: S and dP are computed twice, the price of a dQ without
+//       atomics (the alternative, FA3's dQ reduced through ordered
+//       semaphores, costs a dq accumulator in device memory and a
+//       serialised reduction; recomputing is simpler and exactly
+//       repeatable).
+//     - the mask is applied element by element only on tiles that
+//       straddle the causal diagonal, the window's edge, the tail past S
+//       (and, in the dK/dV kernel, the tail past T); tiles that no row can
+//       see are skipped (Mask::kv_tiles, Mask::q_rows), which is exact.
+//     - numerics: q, k, v, dout are bf16 products summed in f32 by the
+//       tensor cores; scores, m, l, lse, D and every accumulator are f32.
+//       P is rounded to bf16 before P V (as the plain version does,
+//       p.to(q.dtype)); dS is rounded to bf16 before dK and dQ.  Scores
+//       are kept in log2 units (sm_scale * log2(e) multiplies the f32
+//       scores, exp2f takes the place of expf, lse is stored in natural
+//       units).  No fast math: exp2f and logf are the accurate ones.
+// * f32: the SIMT kernels below (TF32 on the tensor cores could not meet
+//   f32's tolerance).  The forward gives each q row TPR adjacent threads
+//   (TPR = d / 64 for d = 128, else 1) holding q and acc in registers,
+//   with K and V tiles of 32 keys staged in shared memory; the backward
+//   has one launch per (b*hkv, kv-block), each thread owning one key and
+//   accumulating dk and dv over the group's q tiles in a fixed order, and
+//   one per (b*hq, q-block), each thread owning one q row.  Every score,
+//   probability and accumulator is f32.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -77,14 +103,13 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
+// The mask and the skip ranges derived from it.  Host code runs the same
+// functions in flash_attention_tile_plan, which chip_smoke.py holds against
+// the element mask.
 struct Mask {
   int S, causal, window, q_offset;
-  __device__ __forceinline__ bool visible(int qpos, int kpos) const {
+  __host__ __device__ __forceinline__ bool visible(int qpos, int kpos) const {
     bool ok = kpos < S;
     if (causal) ok = ok && kpos <= qpos;
     if (window) ok = ok && kpos > qpos - window;
@@ -92,12 +117,13 @@ struct Mask {
   }
   // [lo, hi) tiles of `tile` keys holding a key visible to some q position
   // in [q_first, q_last]
-  __device__ __forceinline__ void kv_tiles(int q_first, int q_last, int tile,
-                                           int* lo, int* hi) const {
+  __host__ __device__ __forceinline__ void kv_tiles(int q_first, int q_last,
+                                                    int tile, int* lo,
+                                                    int* hi) const {
     int k_max = S - 1;
-    if (causal) k_max = min(k_max, q_last);
+    if (causal && q_last < k_max) k_max = q_last;
     int k_min = 0;
-    if (window) k_min = max(0, q_first - window + 1);
+    if (window && q_first - window + 1 > 0) k_min = q_first - window + 1;
     if (k_max < k_min) {
       *lo = 0;
       *hi = 0;
@@ -107,12 +133,33 @@ struct Mask {
     *hi = k_max / tile + 1;
   }
   // [lo, hi) q rows (of T) that see some key in [k_first, k_last]
-  __device__ __forceinline__ void q_rows(int k_first, int k_last, int T,
-                                         int* lo, int* hi) const {
-    int a = causal ? max(0, k_first - q_offset) : 0;
-    int b = window ? min(T, k_last + window - q_offset) : T;
+  __host__ __device__ __forceinline__ void q_rows(int k_first, int k_last,
+                                                  int T, int* lo,
+                                                  int* hi) const {
+    int a = causal && k_first - q_offset > 0 ? k_first - q_offset : 0;
+    int b = T;
+    if (window && k_last + window - q_offset < T) b = k_last + window - q_offset;
     *lo = a;
     *hi = b > a ? b : a;
+  }
+  // [lo, hi) tiles of `bq` q rows (of T) holding a row that sees some key
+  // in [k_first, k_last]
+  __host__ __device__ __forceinline__ void q_tiles(int k_first, int k_last,
+                                                   int T, int bq, int* lo,
+                                                   int* hi) const {
+    int a, b;
+    q_rows(k_first, k_last, T, &a, &b);
+    *lo = a / bq;
+    *hi = b > a ? (b + bq - 1) / bq : *lo;
+  }
+  // A (q, k) tile that every valid q row sees whole: no element mask needed
+  __host__ __device__ __forceinline__ bool tile_full(int q_first, int q_last,
+                                                     int k_first,
+                                                     int k_last) const {
+    bool full = k_last < S;
+    if (causal) full = full && k_last <= q_first;
+    if (window) full = full && k_first > q_last - window;
+    return full;
   }
 };
 
@@ -471,23 +518,961 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
   return cudaGetLastError();
 }
 
-#define FA_DISPATCH(DTYPE, D, CALL)                                         \
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: wgmma on bf16 tiles fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kConsumers = 128;             // one warpgroup: the wgmma threads
+constexpr int kBlock = kConsumers + 32;   // and one producer warp (TMA)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared-memory layout of a bf16 tile [rows, D] as TMA writes it and wgmma
+// reads it: rows of min(D, 64) columns, swizzled over their width (32 B at
+// D = 16, 64 B at D = 32, 128 B at D >= 64); D = 128 is two such column
+// halves, one after the other.
+template <int D>
+struct Layout {
+  static constexpr int kCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kCols * 2;
+  static constexpr int kHalves = D / kCols;
+  // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
+  static constexpr uint64_t kType = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// wait for the phase of parity `parity` to complete; a barrier that has not
+// completed after ~2^34 cycles (seconds) traps, so a fault in the protocol
+// ends the launch with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// TMA: the box at (column c0, row c1, head c2) of a 3-D map [heads, rows, D]
+// into shared memory; completion is counted on `bar` in bytes
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// rows [row, row + rows) of head `head`, every column (two boxes at D = 128)
+template <int D>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int row, int head,
+                                          int rows) {
+  using L = Layout<D>;
+#pragma unroll
+  for (int h = 0; h < L::kHalves; ++h)
+    tma_load(dst + h * rows * L::kRowBytes, map, bar, h * L::kCols, row, head);
+}
+
+template <int D>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (Layout<D>::kType << 62);
+}
+
+// descriptor of the k-th 16-column slice of a K-major tile [ROWS, D] (the
+// reduction runs along D): 8-row groups at 8 rows' bytes; inside a swizzled
+// row the slice starts 32 bytes further per step
+template <int D, int ROWS>
+__device__ __forceinline__ uint64_t kmajor(uint32_t base, int k) {
+  using L = Layout<D>;
+  const int col = k * 16;
+  const uint32_t off = (col / L::kCols) * ROWS * L::kRowBytes + (col % L::kCols) * 2;
+  return make_desc<D>(base + off, 16, 8 * L::kRowBytes);
+}
+
+// descriptor of rows [16k, 16k + 16) of the same tile read MN-major (the
+// reduction runs along the rows, D is the output width): 8-row groups at
+// 8 rows' bytes, column halves at ROWS rows' bytes
+template <int D, int ROWS>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t base, int k) {
+  using L = Layout<D>;
+  return make_desc<D>(base + k * 16 * L::kRowBytes, ROWS * L::kRowBytes,
+                      8 * L::kRowBytes);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of wgmma's registers across
+// the asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// the accumulator fragment of an m64nN product as the bf16 register A
+// operand of the next product (16 columns per k step): the f32 layout of
+// columns [16k, 16k + 16) is the operand layout, rounded to nearest even
+template <int N>
+__device__ __forceinline__ void to_operand(const float (&d)[N / 2],
+                                           uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[k][j] = pack_bf16(d[8 * k + 2 * j], d[8 * k + 2 * j + 1]);
+}
+
+// The m64nNk16 bf16 products the kernels issue, f32 sums in registers:
+// ss (both operands in shared memory) at N = 32 and 64, rs (A in
+// registers) at N = d.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // d[64 x 16] = (acc ? d : 0) + A . B, A in registers (bf16 pairs), B in
+  // shared memory, MN-major (transposed)
+  static __device__ __forceinline__ void rs(float (&d)[8],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{.reg .pred p; setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  // d[64 x 32] = (acc ? d : 0) + A . B, A and B in shared memory, K-major
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int acc) {
+    asm volatile(
+        "{.reg .pred p; setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, "
+        "%16, %17, p, 1, 1, 0, 0;}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // d[64 x 32] = (acc ? d : 0) + A . B, A in registers (bf16 pairs), B in
+  // shared memory, MN-major (transposed)
+  static __device__ __forceinline__ void rs(float (&d)[16],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{.reg .pred p; setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d[64 x 64] = (acc ? d : 0) + A . B, A and B in shared memory, K-major
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int acc) {
+    asm volatile(
+        "{.reg .pred p; setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, "
+        "%32, %33, p, 1, 1, 0, 0;}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  // d[64 x 64] = (acc ? d : 0) + A . B, A in registers (bf16 pairs), B in
+  // shared memory, MN-major (transposed)
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{.reg .pred p; setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d[64 x 128] = (acc ? d : 0) + A . B, A in registers (bf16 pairs), B in
+  // shared memory, MN-major (transposed)
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{.reg .pred p; setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+// Where a thread's accumulator entries lie in an m64nN tile: warp w of the
+// warpgroup holds rows 16w + lane/4 (+ 8 for the second pair of every four
+// entries); entry i is column 8(i/4) + 2(lane%4) + i%2.
+__device__ __forceinline__ int frag_row(int i) { return (i >> 1) & 1; }
+__device__ __forceinline__ int frag_col(int i, int lane) {
+  return (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void init_barriers(uint64_t* bars, int stages,
+                                              int full_count) {
+  // bars: full[stages], empty[stages], then one one-shot barrier
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&bars[s], full_count);
+      mbar_init(&bars[stages + s], kConsumers);
+    }
+    mbar_init(&bars[2 * stages], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// ------------------------------- forward ----------------------------------
+
+template <int D>
+struct Fwd {
+  static constexpr int BM = 64;                 // q rows per block
+  // keys per kv tile: at 64 a thread holds 32 scores, the kernel ~100
+  // registers, and three blocks share an SM; at 128, two
+  static constexpr int BK = 64;
+  static constexpr int STAGES = 2;  // depth of the TMA ring
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (2 * STAGES + 1);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBlock)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    int Hq, int Hkv, int Tq, Mask mask, float sm_scale) {
+  using C = Fwd<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align1024(smem_raw);
+  uint8_t* kv_s = q_s + C::Q_BYTES;  // stage s: K at 2s, V at 2s + 1
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(kv_s + C::STAGES * 2 * C::KV_BYTES);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + C::STAGES;
+  uint64_t* q_bar = bars + 2 * C::STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
+  const int bh = blockIdx.y;
+  const int b = bh / Hq, h = bh - b * Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const int q0 = qt * C::BM;
+  const int q_first = mask.q_offset + q0;
+  const int q_last = mask.q_offset + min(Tq, q0 + C::BM) - 1;
+  int lo, hi;
+  mask.kv_tiles(q_first, q_last, C::BK, &lo, &hi);
+  init_barriers(bars, C::STAGES, 1);
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp: one lane issues TMA
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_bar, C::Q_BYTES);
+      load_tile<D>(q_s, &tm_q, q_bar, q0, bh, C::BM);
+      for (int t = lo; t < hi; ++t) {
+        const int it = t - lo, s = it % C::STAGES;
+        if (it >= C::STAGES) mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+        uint8_t* k_s = kv_s + 2 * s * C::KV_BYTES;
+        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+        load_tile<D>(k_s, &tm_k, &full[s], t * C::BK, bkv, C::BK);
+        load_tile<D>(k_s + C::KV_BYTES, &tm_v, &full[s], t * C::BK, bkv, C::BK);
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);  // rows r0, r0 + 8
+  const float sl2 = sm_scale * kLog2e;  // scores in log2 units: exp2f
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const uint32_t q_addr = smem_u32(q_s);
+  mbar_wait(q_bar, 0);
+
+  for (int t = lo; t < hi; ++t) {
+    const int it = t - lo, s = it % C::STAGES;
+    const uint32_t k_addr = smem_u32(kv_s + 2 * s * C::KV_BYTES);
+    const uint32_t v_addr = k_addr + C::KV_BYTES;
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
+
+    float x[C::BK / 2];  // S = Q . K^T, f32
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      Wgmma<C::BK>::ss(x, kmajor<D, C::BM>(q_addr, k),
+                       kmajor<D, C::BK>(k_addr, k), k > 0);
+    wg_commit();
+    wg_wait();
+    fence_regs(x);
+
+    const int k0 = t * C::BK;
+    const bool edge = !mask.tile_full(q_first, q_last, k0, k0 + C::BK - 1);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < C::BK / 2; ++i) {
+      float v = x[i] * sl2;
+      if (edge && !mask.visible(mask.q_offset + q0 + r0 + 8 * frag_row(i),
+                                k0 + frag_col(i, lane)))
+        v = -INFINITY;  // exp2f gives +0.0; m stays finite
+      x[i] = v;
+      mx[frag_row(i)] = fmaxf(mx[frag_row(i)], v);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < C::BK / 2; ++i) {
+      x[i] = exp2f(x[i] - m[frag_row(i)]);  // p, f32
+      l[frag_row(i)] += x[i];
+    }
+    uint32_t p[C::BK / 16][4];  // p rounded to bf16: the A operand of P . V
+    to_operand<C::BK>(x, p);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[frag_row(i)];
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < C::BK / 16; ++k)
+      Wgmma<D>::rs(o, p[k], mnmajor<D, C::BK>(v_addr, k), 1);
+    wg_commit();
+    wg_wait();
+    fence_regs(o);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    const float lr = quad_sum(l[r]);
+    if (row >= Tq) continue;
+    const float den = fmaxf(lr, 1e-30f);
+    __nv_bfloat16* orow = out + (static_cast<int64_t>(bh) * Tq + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + (lane & 3) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+          o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+    }
+    if ((lane & 3) == 0)
+      lse[static_cast<int64_t>(bh) * Tq + row] =
+          lr > 0.f ? m[r] * kLn2 + logf(lr) : 0.f;
+  }
+}
+
+// ------------------------------- backward ---------------------------------
+
+// dq: one block per (b*hq, 64 q rows); Q and dO stay in shared memory, K and
+// V tiles come through the ring in order
+template <int D>
+struct Dq {
+  static constexpr int BM = 64;
+  static constexpr int BK = 64;
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (2 * STAGES + 1);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBlock)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int Hq, int Hkv, int Tq,
+                       Mask mask, float sm_scale) {
+  using C = Dq<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align1024(smem_raw);
+  uint8_t* do_s = q_s + C::Q_BYTES;
+  uint8_t* kv_s = do_s + C::Q_BYTES;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(kv_s + C::STAGES * 2 * C::KV_BYTES);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + C::STAGES;
+  uint64_t* q_bar = bars + 2 * C::STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / Hq, h = bh - b * Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const int q0 = qt * C::BM;
+  const int q_first = mask.q_offset + q0;
+  const int q_last = mask.q_offset + min(Tq, q0 + C::BM) - 1;
+  int lo, hi;
+  mask.kv_tiles(q_first, q_last, C::BK, &lo, &hi);
+  init_barriers(bars, C::STAGES, 1);
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_bar, 2 * C::Q_BYTES);
+      load_tile<D>(q_s, &tm_q, q_bar, q0, bh, C::BM);
+      load_tile<D>(do_s, &tm_do, q_bar, q0, bh, C::BM);
+      for (int t = lo; t < hi; ++t) {
+        const int it = t - lo, s = it % C::STAGES;
+        if (it >= C::STAGES) mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+        uint8_t* k_s = kv_s + 2 * s * C::KV_BYTES;
+        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+        load_tile<D>(k_s, &tm_k, &full[s], t * C::BK, bkv, C::BK);
+        load_tile<D>(k_s + C::KV_BYTES, &tm_v, &full[s], t * C::BK, bkv, C::BK);
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const float sl2 = sm_scale * kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    const int64_t ri = static_cast<int64_t>(bh) * Tq + row;
+    lse2[r] = row < Tq ? lse[ri] * kLog2e : 0.f;
+    dl[r] = row < Tq ? delta[ri] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s);
+  mbar_wait(q_bar, 0);
+
+  for (int t = lo; t < hi; ++t) {
+    const int it = t - lo, s = it % C::STAGES;
+    const uint32_t k_addr = smem_u32(kv_s + 2 * s * C::KV_BYTES);
+    const uint32_t v_addr = k_addr + C::KV_BYTES;
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
+
+    float x[C::BK / 2], dp[C::BK / 2];  // S = Q . K^T, dP = dO . V^T
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      Wgmma<C::BK>::ss(x, kmajor<D, C::BM>(q_addr, k),
+                       kmajor<D, C::BK>(k_addr, k), k > 0);
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      Wgmma<C::BK>::ss(dp, kmajor<D, C::BM>(do_addr, k),
+                       kmajor<D, C::BK>(v_addr, k), k > 0);
+    wg_commit();
+    wg_wait();
+    fence_regs(x);
+    fence_regs(dp);
+
+    const int k0 = t * C::BK;
+    const bool edge = !mask.tile_full(q_first, q_last, k0, k0 + C::BK - 1);
+#pragma unroll
+    for (int i = 0; i < C::BK / 2; ++i) {
+      const int r = frag_row(i);
+      float p = exp2f(x[i] * sl2 - lse2[r]);
+      if (edge && !mask.visible(mask.q_offset + q0 + r0 + 8 * r,
+                                k0 + frag_col(i, lane)))
+        p = 0.f;
+      x[i] = p * (dp[i] - dl[r]);  // dS, f32
+    }
+    uint32_t ds[C::BK / 16][4];  // dS rounded to bf16: the A operand of dS . K
+    to_operand<C::BK>(x, ds);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < C::BK / 16; ++k)
+      Wgmma<D>::rs(acc, ds[k], mnmajor<D, C::BK>(k_addr, k), 1);
+    wg_commit();
+    wg_wait();
+    fence_regs(acc);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= Tq) continue;
+    __nv_bfloat16* g = dq + (static_cast<int64_t>(bh) * Tq + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + (lane & 3) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(g + col) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * sm_scale, acc[4 * j + 2 * r + 1] * sm_scale);
+    }
+  }
+}
+
+// dk, dv: one block per (b*hkv, 64 keys); K and V stay in shared memory, the
+// group's q heads and each head's visible q tiles come through the ring in
+// order (Q, dO by TMA; lse, D by the producer warp's lanes)
+template <int D>
+struct Dkv {
+  static constexpr int BN = 64;                 // keys per block
+  static constexpr int BQ = D <= 64 ? 64 : 32;  // q rows per tile
+  static constexpr int STAGES = 2;
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  // Q, dO, then lse and D; rounded up so that every stage's tiles start on
+  // a 1024-byte boundary, where the swizzle pattern starts
+  static constexpr int STAGE = (2 * Q_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int SMEM =
+      1024 + 2 * KV_BYTES + STAGES * STAGE + 8 * (2 * STAGES + 1);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBlock)
+flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Hq, int Hkv,
+                         int Tq, Mask mask, float sm_scale) {
+  using C = Dkv<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = align1024(smem_raw);
+  uint8_t* v_s = k_s + C::KV_BYTES;
+  uint8_t* st_s = v_s + C::KV_BYTES;  // stage s: Q, dO, lse2[BQ], D[BQ]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(st_s + C::STAGES * C::STAGE);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + C::STAGES;
+  uint64_t* kv_bar = bars + 2 * C::STAGES;
+
+  const int bkv = blockIdx.y;
+  const int b = bkv / Hkv, hk = bkv - b * Hkv;
+  const int group = Hq / Hkv;
+  const int k0 = blockIdx.x * C::BN;
+  const int k_last = min(mask.S, k0 + C::BN) - 1;
+  int t_lo, t_hi;
+  mask.q_tiles(k0, k_last, Tq, C::BQ, &t_lo, &t_hi);
+  const int per_head = t_hi - t_lo;
+  init_barriers(bars, C::STAGES, 32);
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp, all 32 lanes
+    const int lane = threadIdx.x - kConsumers;
+    if (lane == 0) {
+      mbar_expect_tx(kv_bar, 2 * C::KV_BYTES);
+      load_tile<D>(k_s, &tm_k, kv_bar, k0, bkv, C::BN);
+      load_tile<D>(v_s, &tm_v, kv_bar, k0, bkv, C::BN);
+    }
+    for (int it = 0; it < group * per_head; ++it) {
+      const int s = it % C::STAGES;
+      const int g = it / per_head, t0 = (t_lo + it % per_head) * C::BQ;
+      const int bh = b * Hq + hk * group + g;
+      if (it >= C::STAGES) mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+      uint8_t* st = st_s + s * C::STAGE;
+      float* lse_s = reinterpret_cast<float*>(st + 2 * C::Q_BYTES);
+      for (int c = lane; c < C::BQ; c += 32) {
+        const bool ok = t0 + c < Tq;
+        const int64_t ri = static_cast<int64_t>(bh) * Tq + t0 + c;
+        lse_s[c] = ok ? lse[ri] * kLog2e : 0.f;
+        lse_s[C::BQ + c] = ok ? delta[ri] : 0.f;
+      }
+      if (lane == 0) {  // its arrival carries the byte count of the loads
+        mbar_expect_tx(&full[s], 2 * C::Q_BYTES);
+        load_tile<D>(st, &tm_q, &full[s], t0, bh, C::BQ);
+        load_tile<D>(st + C::Q_BYTES, &tm_do, &full[s], t0, bh, C::BQ);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);  // keys k0 + r0 (+ 8)
+  const float sl2 = sm_scale * kLog2e;
+  float gk[D / 2], gv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+  const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
+  mbar_wait(kv_bar, 0);
+
+  for (int it = 0; it < group * per_head; ++it) {
+    const int s = it % C::STAGES;
+    const int t0 = (t_lo + it % per_head) * C::BQ;
+    uint8_t* st = st_s + s * C::STAGE;
+    const uint32_t q_addr = smem_u32(st), do_addr = q_addr + C::Q_BYTES;
+    const float* lse_s = reinterpret_cast<const float*>(st + 2 * C::Q_BYTES);
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
+
+    float x[C::BQ / 2], dp[C::BQ / 2];  // S^T = K . Q^T, dP^T = V . dO^T
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      Wgmma<C::BQ>::ss(x, kmajor<D, C::BN>(k_addr, k),
+                       kmajor<D, C::BQ>(q_addr, k), k > 0);
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      Wgmma<C::BQ>::ss(dp, kmajor<D, C::BN>(v_addr, k),
+                       kmajor<D, C::BQ>(do_addr, k), k > 0);
+    wg_commit();
+    wg_wait();
+    fence_regs(x);
+    fence_regs(dp);
+
+    const int qa = mask.q_offset + t0;
+    const bool edge = !(t0 + C::BQ <= Tq &&
+                        mask.tile_full(qa, qa + C::BQ - 1, k0, k0 + C::BN - 1));
+#pragma unroll
+    for (int i = 0; i < C::BQ / 2; ++i) {
+      const int c = frag_col(i, lane);
+      float p = exp2f(x[i] * sl2 - lse_s[c]);
+      if (edge && !(t0 + c < Tq &&
+                    mask.visible(qa + c, k0 + r0 + 8 * frag_row(i))))
+        p = 0.f;
+      x[i] = p;                            // P^T, f32
+      dp[i] = p * (dp[i] - lse_s[C::BQ + c]);  // dS^T, f32
+    }
+    uint32_t pa[C::BQ / 16][4], da[C::BQ / 16][4];  // both rounded to bf16
+    to_operand<C::BQ>(x, pa);
+    to_operand<C::BQ>(dp, da);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < C::BQ / 16; ++k)
+      Wgmma<D>::rs(gv, pa[k], mnmajor<D, C::BQ>(do_addr, k), 1);
+#pragma unroll
+    for (int k = 0; k < C::BQ / 16; ++k)
+      Wgmma<D>::rs(gk, da[k], mnmajor<D, C::BQ>(q_addr, k), 1);
+    wg_commit();
+    wg_wait();
+    fence_regs(gk);
+    fence_regs(gv);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + r0 + 8 * r;
+    if (key >= mask.S) continue;
+    const int64_t off = (static_cast<int64_t>(bkv) * mask.S + key) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + (lane & 3) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + col) = __floats2bfloat162_rn(
+          gk[4 * j + 2 * r] * sm_scale, gk[4 * j + 2 * r + 1] * sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+          __floats2bfloat162_rn(gv[4 * j + 2 * r], gv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ------------------------------- host side --------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library needs no link against libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over a contiguous bf16 tensor [heads, rows, D] whose box is
+// [rows_per_box, min(D, 64)] of one head, swizzled as Layout<D> says.  A
+// box past `rows` zero-fills inside its own head.
+template <int D>
+bool make_map(CUtensorMap* map, const void* base, int64_t heads, int rows,
+              int box_rows) {
+  using L = Layout<D>;
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(L::kCols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : L::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once for each
+// device: the attribute stays with the function, so later calls skip it.
+// `done` is the caller's, one for each kernel instantiation (bit i: device
+// i is set)
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, std::atomic<uint64_t>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done->load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done->fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+template <int D>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Hq, int Hkv, int Tq, const Mask& mask,
+                float sm_scale, cudaStream_t stream) {
+  using C = Fwd<D>;
+  if (mask.S == 0) {  // no key: every row is empty, out = 0 and lse = 0
+    cudaError_t err = cudaMemsetAsync(
+        out, 0, static_cast<size_t>(B) * Hq * Tq * D * 2, stream);
+    if (err != cudaSuccess) return err;
+    return cudaMemsetAsync(lse, 0, static_cast<size_t>(B) * Hq * Tq * 4, stream);
+  }
+  CUtensorMap mq, mk, mv;
+  if (!make_map<D>(&mq, q, static_cast<int64_t>(B) * Hq, Tq, C::BM) ||
+      !make_map<D>(&mk, k, static_cast<int64_t>(B) * Hkv, mask.S, C::BK) ||
+      !make_map<D>(&mv, v, static_cast<int64_t>(B) * Hkv, mask.S, C::BK))
+    return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D>, C::SMEM, &smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(Tq, C::BM), B * Hq);
+  flash_fwd_tc_kernel<D><<<grid, kBlock, C::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, Hq, Hkv, Tq, mask,
+      sm_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
+                const void* dout, const float* lse, float* delta, void* dq,
+                void* dk, void* dv, int B, int Hq, int Hkv, int Tq,
+                const Mask& mask, float sm_scale, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  if (mask.S == 0)  // no key: dq = 0 (dk and dv have no element)
+    return cudaMemsetAsync(dq, 0, static_cast<size_t>(B) * Hq * Tq * D * 2,
+                           stream);
+  const int64_t rows = static_cast<int64_t>(B) * Hq * Tq;
+  flash_bwd_delta_kernel<T, D><<<cdiv(rows, kThreads / 32), kThreads, 0,
+                                 stream>>>(static_cast<const T*>(out),
+                                           static_cast<const T*>(dout), delta,
+                                           rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t bhq = static_cast<int64_t>(B) * Hq, bhk = static_cast<int64_t>(B) * Hkv;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map<D>(&mq, q, bhq, Tq, Dkv<D>::BQ) ||
+      !make_map<D>(&mdo, dout, bhq, Tq, Dkv<D>::BQ) ||
+      !make_map<D>(&mk, k, bhk, mask.S, Dkv<D>::BN) ||
+      !make_map<D>(&mv, v, bhk, mask.S, Dkv<D>::BN))
+    return cudaErrorInvalidValue;
+  static std::atomic<uint64_t> dkdv_smem_set{0}, dq_smem_set{0};
+  err = allow_smem(flash_bwd_dkdv_tc_kernel<D>, Dkv<D>::SMEM, &dkdv_smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 gkv(cdiv(mask.S, Dkv<D>::BN), B * Hkv);
+  flash_bwd_dkdv_tc_kernel<D><<<gkv, kBlock, Dkv<D>::SMEM, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      Hq, Hkv, Tq, mask, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the dq kernel's boxes: 64 keys, as the dK/dV kernel's; 64 q rows, which
+  // differ from its q tile only at d = 128
+  static_assert(Dq<D>::BK == Dkv<D>::BN, "the K/V maps serve both kernels");
+  if constexpr (Dq<D>::BM != Dkv<D>::BQ) {
+    if (!make_map<D>(&mq, q, bhq, Tq, Dq<D>::BM) ||
+        !make_map<D>(&mdo, dout, bhq, Tq, Dq<D>::BM))
+      return cudaErrorInvalidValue;
+  }
+  err = allow_smem(flash_bwd_dq_tc_kernel<D>, Dq<D>::SMEM, &dq_smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 gq(cdiv(Tq, Dq<D>::BM), B * Hq);
+  flash_bwd_dq_tc_kernel<D><<<gq, kBlock, Dq<D>::SMEM, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<T*>(dq), Hq, Hkv, Tq, mask,
+      sm_scale);
+  return cudaGetLastError();
+}
+
+// The tile plan of the kernels above at head dim D, on the host: for each
+// q block i of the forward and dQ kernels, kv[2i], kv[2i + 1] = [lo, hi) of
+// its kv tiles and kv_full[i * n_kv + t] = 1 where kv tile t takes no
+// element mask; for each key block j of the dK/dV kernel, qt[2j],
+// qt[2j + 1] = [lo, hi) of its q tiles and q_full[j * n_qt + t] likewise
+// (n_kv = cdiv(S, 64), n_qt = cdiv(Tq, bq)).  Returns bq, the dK/dV
+// kernel's q rows per tile, and writes nothing where kv is null.
+template <int D>
+int tile_plan(int Tq, const Mask& mask, int* kv, unsigned char* kv_full,
+              int* qt, unsigned char* q_full) {
+  static_assert(Fwd<D>::BM == Dq<D>::BM && Fwd<D>::BK == Dq<D>::BK,
+                "the forward and dQ kernels share their tiles");
+  constexpr int BM = Fwd<D>::BM, BK = Fwd<D>::BK;
+  constexpr int BN = Dkv<D>::BN, BQ = Dkv<D>::BQ;
+  if (kv == nullptr) return BQ;
+  const int n_kv = cdiv(mask.S, BK), n_qt = cdiv(Tq, BQ);
+  for (int i = 0; i < cdiv(Tq, BM); ++i) {
+    const int q0 = i * BM, q_end = Tq < q0 + BM ? Tq : q0 + BM;
+    const int q_first = mask.q_offset + q0, q_last = mask.q_offset + q_end - 1;
+    mask.kv_tiles(q_first, q_last, BK, &kv[2 * i], &kv[2 * i + 1]);
+    for (int t = kv[2 * i]; t < kv[2 * i + 1]; ++t)
+      kv_full[i * n_kv + t] =
+          mask.tile_full(q_first, q_last, t * BK, t * BK + BK - 1);
+  }
+  for (int j = 0; j < cdiv(mask.S, BN); ++j) {
+    const int k0 = j * BN, k_last = (mask.S < k0 + BN ? mask.S : k0 + BN) - 1;
+    mask.q_tiles(k0, k_last, Tq, BQ, &qt[2 * j], &qt[2 * j + 1]);
+    for (int t = qt[2 * j]; t < qt[2 * j + 1]; ++t) {
+      const int qa = mask.q_offset + t * BQ;
+      q_full[j * n_qt + t] = t * BQ + BQ <= Tq &&
+                             mask.tile_full(qa, qa + BQ - 1, k0, k0 + BN - 1);
+    }
+  }
+  return BQ;
+}
+
+}  // namespace tc
+
+// dtype 0 (f32) runs the SIMT kernels, dtype 1 (bf16) the tensor-core ones
+#define FA_DISPATCH(DTYPE, D, CALL_F32, CALL_BF16)                          \
   do {                                                                      \
     if (DTYPE == 0) {                                                       \
       using T = float;                                                      \
       switch (D) {                                                          \
-        case 16: { constexpr int HD = 16; return CALL; }                    \
-        case 32: { constexpr int HD = 32; return CALL; }                    \
-        case 64: { constexpr int HD = 64; return CALL; }                    \
-        case 128: { constexpr int HD = 128; return CALL; }                  \
+        case 16: { constexpr int HD = 16; return CALL_F32; }                \
+        case 32: { constexpr int HD = 32; return CALL_F32; }                \
+        case 64: { constexpr int HD = 64; return CALL_F32; }                \
+        case 128: { constexpr int HD = 128; return CALL_F32; }              \
       }                                                                     \
     } else if (DTYPE == 1) {                                                \
-      using T = __nv_bfloat16;                                              \
       switch (D) {                                                          \
-        case 16: { constexpr int HD = 16; return CALL; }                    \
-        case 32: { constexpr int HD = 32; return CALL; }                    \
-        case 64: { constexpr int HD = 64; return CALL; }                    \
-        case 128: { constexpr int HD = 128; return CALL; }                  \
+        case 16: { constexpr int HD = 16; return CALL_BF16; }               \
+        case 32: { constexpr int HD = 32; return CALL_BF16; }               \
+        case 64: { constexpr int HD = 64; return CALL_BF16; }               \
+        case 128: { constexpr int HD = 128; return CALL_BF16; }             \
       }                                                                     \
     }                                                                       \
     return static_cast<int>(cudaErrorInvalidValue);                         \
@@ -496,8 +1481,9 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
 }  // namespace
 
 // dtype codes: 0 = f32, 1 = bf16; head dims 16, 32, 64, 128.  Tensors are
-// contiguous [B, H, T|S, D].  Returns the cudaError_t of the launches (0 on
-// success); shapes are checked by the caller.
+// contiguous [B, H, T|S, D]; bf16 ones 16-byte aligned (TMA).  Returns the
+// cudaError_t of the launches (0 on success); shapes are checked by the
+// caller.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, float* lse, int B,
     int Hq, int Hkv, int Tq, int S, int D, int causal, int window,
@@ -508,7 +1494,9 @@ extern "C" int flash_attention_fwd_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FA_DISPATCH(dtype, D,
               static_cast<int>((fwd<T, HD>(q, k, v, out, lse, B, Hq, Hkv, Tq,
-                                           mask, sm_scale, s))));
+                                           mask, sm_scale, s))),
+              static_cast<int>((tc::fwd<HD>(q, k, v, out, lse, B, Hq, Hkv, Tq,
+                                            mask, sm_scale, s))));
 }
 
 // delta is f32 scratch [B, Hq, T]; dq is [B, Hq, T, D], dk/dv [B, Hkv, S, D].
@@ -531,5 +1519,25 @@ extern "C" int flash_attention_bwd_launch(
   FA_DISPATCH(dtype, D,
               static_cast<int>((bwd<T, HD>(q, k, v, out, dout, lse, delta, dq,
                                            dk, dv, B, Hq, Hkv, Tq, mask,
-                                           sm_scale, s))));
+                                           sm_scale, s))),
+              static_cast<int>((tc::bwd<HD>(q, k, v, out, dout, lse, delta,
+                                            dq, dk, dv, B, Hq, Hkv, Tq, mask,
+                                            sm_scale, s))));
+}
+
+// The bf16 kernels' tile plan (tc::tile_plan), computed on the host by the
+// Mask functions the kernels run; chip_smoke.py holds it against the
+// element mask.  Returns -1 for a head dim the kernels do not take.
+extern "C" int flash_attention_tile_plan(int Tq, int S, int D, int causal,
+                                         int window, int q_offset, int* kv,
+                                         unsigned char* kv_full, int* qt,
+                                         unsigned char* q_full) {
+  const Mask mask{S, causal, window, q_offset};
+  switch (D) {
+    case 16: return tc::tile_plan<16>(Tq, mask, kv, kv_full, qt, q_full);
+    case 32: return tc::tile_plan<32>(Tq, mask, kv, kv_full, qt, q_full);
+    case 64: return tc::tile_plan<64>(Tq, mask, kv, kv_full, qt, q_full);
+    case 128: return tc::tile_plan<128>(Tq, mask, kv, kv_full, qt, q_full);
+  }
+  return -1;
 }

@@ -11,8 +11,11 @@ gradient of the same function is a hand-written kernel too.  Pieces:
   ``csrc/flash_attention.cu`` (counted in ``flash_attention.launches``) and
   whose backward launches its backward kernels (one call of
   :func:`flash_attention_bwd`, counted in ``flash_attention_bwd.launches``);
-  a CPU tensor goes to the plain version.  Nothing falls back: a CUDA call
-  that the kernel does not take, or whose build or launch fails, raises.
+  a CPU tensor goes to the plain version.  The route is chosen by dtype
+  alone: bf16 runs on the tensor cores (``wgmma`` on tiles that TMA brings
+  into shared memory), f32 on the SIMT kernels.  Nothing falls back: a CUDA
+  call that the kernel does not take (for bf16 also a base address off 16
+  bytes), or whose build or launch fails, raises.
 * :func:`flash_attention_plain` — the plain PyTorch version, the port of
   the reference's ``repro.kernels.ops._xla_flash_attention`` (chunked
   online softmax over kv blocks of 512, each block's step checkpointed so
@@ -137,7 +140,20 @@ def _check_cuda(q, k, v, window, q_offset):
                          "int); a dynamic offset does not arise in training")
     if int(window) < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q=q, k=k, v=v)
     return B, Hq, Hkv, T, S, d
+
+
+def _check_tma(**tensors):
+    """The bf16 kernels read their tiles by TMA: every base address on 16
+    bytes.  (Their row strides, d x 2 bytes for d in HEAD_DIMS, are
+    multiples of 16 already.)"""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             f"the bf16 kernels (TMA); got address "
+                             f"{t.data_ptr():#x}")
 
 
 def _lib():
@@ -150,7 +166,33 @@ def _lib():
         lib.flash_attention_fwd_launch.restype = i
         lib.flash_attention_bwd_launch.argtypes = [p] * 10 + [i] * 9 + [f, i, p]
         lib.flash_attention_bwd_launch.restype = i
+        lib.flash_attention_tile_plan.argtypes = [i] * 6 + [p] * 4
+        lib.flash_attention_tile_plan.restype = i
     return lib
+
+
+def tile_plan(T: int, S: int, d: int, causal: bool, window: int,
+              q_offset: int) -> dict:
+    """The bf16 kernels' skip ranges and tile classes, computed on the host
+    by the same functions the kernels run (it needs the built library, not
+    a card).  Returns ``kv [n_q_blocks, 2]``: [lo, hi) of each 64-row q
+    block's 64-key tiles (forward and dQ kernels); ``kv_full [n_q_blocks,
+    n_kv_tiles]``: which of them take no element mask; ``qt``, ``q_full``:
+    the same for the dK/dV kernel's q tiles of ``bq`` rows in each 64-key
+    block; and ``bq``."""
+    lib, cdiv = _lib(), lambda a, b: -(-a // b)
+    args = (T, S, d, int(bool(causal)), int(window), int(q_offset))
+    bq = lib.flash_attention_tile_plan(*args, None, None, None, None)
+    if bq < 0:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    kv = torch.zeros((cdiv(T, 64), 2), dtype=torch.int32)
+    kv_full = torch.zeros((cdiv(T, 64), cdiv(S, 64)), dtype=torch.uint8)
+    qt = torch.zeros((cdiv(S, 64), 2), dtype=torch.int32)
+    q_full = torch.zeros((cdiv(S, 64), cdiv(T, bq)), dtype=torch.uint8)
+    lib.flash_attention_tile_plan(*args, *(t.data_ptr() for t in
+                                           (kv, kv_full, qt, q_full)))
+    return {"kv": kv, "kv_full": kv_full.bool(), "qt": qt,
+            "q_full": q_full.bool(), "bq": bq}
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0,
@@ -186,6 +228,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True,
     if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape) \
             or tuple(lse.shape) != (B, Hq, T):
         raise ValueError("out/dout must match q and lse must be [B, Hq, T]")
+    if q.dtype == torch.bfloat16:
+        _check_tma(dout=dout)
     delta = empty_for_kernel((B, Hq, T), torch.float32, q.device)
     dq = empty_for_kernel(q.shape, q.dtype, q.device)
     dk = empty_for_kernel(k.shape, k.dtype, k.device)

@@ -90,9 +90,15 @@ def _explain(scfg: TPServeConfig, args) -> None:
             kv_dtype=args.kv_dtype))
 
 
+#: The port's own kernels, by the prefix of their names in ``csrc/``.
+KERNEL_FAMILIES = ("flash_", "gla_", "paged_attention", "quantize",
+                   "dequantize")
+
+
 def report_profile(prof, wall_s: float) -> None:
     """Where the traced span's time went: host ops by self CPU time, device
-    kernels by self device time, and the device's busy share of the wall
+    kernels by self device time, the device's busy share of the wall time,
+    and each family of the port's own kernels with its share of the device
     time."""
     events = prof.key_averages()
     # device events only: a host op also reports the device time of the
@@ -101,6 +107,13 @@ def report_profile(prof, wall_s: float) -> None:
     dev_us = sum(e.self_device_time_total for e in kernels)
     print(f"profile: wall {wall_s*1e3:.3f} ms, device kernels "
           f"{dev_us/1e3:.3f} ms (busy {100*dev_us/1e6/wall_s:.2f}% of wall)")
+    for fam in KERNEL_FAMILIES:
+        mine = [e for e in kernels if f"::{fam}" in e.key]
+        us = sum(e.self_device_time_total for e in mine)
+        if mine:
+            print(f"  {fam}* kernels: {us/1e3:.3f} ms in "
+                  f"{sum(e.count for e in mine)} launches "
+                  f"({100*us/max(dev_us, 1e-9):.2f}% of device time)")
     for rows, key, title in ((events, "self_cpu_time_total", "host ops"),
                              (kernels, "self_device_time_total",
                               "device kernels")):

@@ -137,6 +137,20 @@ def test_wrapper_contract_refusals():
         fa._check_cuda(q.half(), q.half(), q.half(), 0, 0)
 
 
+def test_bf16_base_address_off_16_bytes_is_refused():
+    """The bf16 kernels read by TMA, which needs 16-byte base addresses: a
+    contiguous view that starts one element into its storage is refused
+    before any build or launch."""
+    q = torch.zeros(2 * 4 * 16 + 1, dtype=torch.bfloat16)[1:].view(1, 2, 4, 16)
+    ok = torch.zeros((1, 2, 4, 16), dtype=torch.bfloat16)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    fa._check_cuda(ok, ok, ok, 0, 0)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa._check_cuda(q, ok, ok, 0, 0)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa._check_cuda(ok, ok, q, 0, 0)
+
+
 def test_cuda_call_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -168,3 +182,277 @@ def test_cuda_kernels_vs_plain(dtype):
         tol = 1e-4 if dtype == "f32" else 2e-2 * scale
         np.testing.assert_allclose(a.float().cpu().numpy(),
                                    b.float().cpu().numpy(), atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# CPU emulation of the bf16 tensor-core kernels (csrc/flash_attention.cu,
+# namespace tc): their tiles, skip ranges, f32 statistics in log2 units,
+# and their rounding points (P to bf16 before P.V, dS to bf16 before the dK
+# and dQ products), held against the Pallas kernel, the oracle and
+# jax.grad of the oracle at the card's tolerances.
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+EMU_CASES = ATT_CASES + [(2, 4, 2, 100, 100, 16, True, 0, 0)]
+EMU_IDS = [str(c) for c in EMU_CASES]
+# the forward and the dq kernel: 64 q rows a block, kv tiles of 64 keys;
+# the dk/dv kernel: 64 keys a block, q tiles of dkv_bq(d) rows
+BM, BK, DKV_BN = 64, 64, 64
+
+
+def dkv_bq(d):
+    """q rows per tile of the dK/dV kernel."""
+    return 64 if d <= 64 else 32
+
+
+def kv_tiles(q_first, q_last, tile, S, causal, window):
+    """``Mask::kv_tiles``: [lo, hi) kv tiles holding a key that some q
+    position in [q_first, q_last] sees."""
+    k_max = min(S - 1, q_last) if causal else S - 1
+    k_min = max(0, q_first - window + 1) if window else 0
+    if k_max < k_min:
+        return 0, 0
+    return k_min // tile, k_max // tile + 1
+
+
+def q_rows(k_first, k_last, T, causal, window, off):
+    """``Mask::q_rows``: [lo, hi) q rows that see a key in [k_first,
+    k_last]."""
+    a = max(0, k_first - off) if causal else 0
+    b = min(T, k_last + window - off) if window else T
+    return a, max(a, b)
+
+
+def q_tiles(k0, S, T, bq, causal, window, off):
+    """The dK/dV kernel's q tiles (aligned to ``bq``) for keys [k0, k0+64)."""
+    lo, hi = q_rows(k0, min(S, k0 + DKV_BN) - 1, T, causal, window, off)
+    return range(lo // bq, -(-hi // bq) if hi > lo else lo // bq)
+
+
+def tile_full(q_first, q_last, k_first, k_last, S, causal, window):
+    """``tile_full``: every valid q row of the tile sees every key."""
+    full = k_last < S
+    if causal:
+        full = full and k_last <= q_first
+    if window:
+        full = full and k_first > q_last - window
+    return full
+
+
+def _visible(qpos, kpos, S, causal, window):
+    ok = kpos < S
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window:
+        ok = ok & (kpos > qpos - window)
+    return ok
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def emulate_fwd(q, k, v, causal, window, off):
+    """The bf16 forward kernel's arithmetic → (out bf16, lse f32)."""
+    B, Hq, T, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(group, 1) for t in (k, v))
+    sl2 = torch.tensor(d**-0.5, dtype=torch.float32) * LOG2E
+    out = torch.zeros((B, Hq, T, d))
+    lse = torch.zeros((B, Hq, T))
+    bk = BK
+    for q0 in range(0, T, BM):
+        rows = min(T, q0 + BM) - q0
+        q_first, q_last = off + q0, off + q0 + rows - 1
+        qpos = torch.arange(q_first, q_last + 1)[:, None]
+        m = torch.full((B, Hq, rows), -1e30)
+        l = torch.zeros((B, Hq, rows))
+        acc = torch.zeros((B, Hq, rows, d))
+        for t in range(*kv_tiles(q_first, q_last, bk, S, causal, window)):
+            k0 = t * bk
+            kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+            x = torch.matmul(qf[:, :, q0:q0 + rows], kt.transpose(-1, -2)) * sl2
+            vis = _visible(qpos, torch.arange(k0, k0 + kt.shape[2])[None],
+                           S, causal, window)
+            if tile_full(q_first, q_last, k0, k0 + bk - 1, S, causal, window):
+                assert bool(vis.all())
+            else:
+                x = torch.where(vis, x, torch.tensor(-torch.inf))
+            mx = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - mx)
+            m = mx
+            p = torch.exp2(x - m[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.matmul(_bf16(p), vt)
+        out[:, :, q0:q0 + rows] = acc / torch.clamp_min(l, 1e-30)[..., None]
+        lse[:, :, q0:q0 + rows] = torch.where(l > 0, m * LN2 + torch.log(l),
+                                              torch.zeros_like(l))
+    return out.to(torch.bfloat16), lse
+
+
+def emulate_bwd(q, k, v, out, dout, lse, causal, window, off):
+    """The bf16 backward kernels' arithmetic → (dq, dk, dv) in bf16."""
+    B, Hq, T, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = torch.tensor(d**-0.5, dtype=torch.float32)
+    sl2 = scale * LOG2E
+    qf, gf = q.float(), dout.float()
+    delta = (gf * out.float()).sum(-1)
+    lse2 = lse * LOG2E
+    # dq: one block per 64 q rows, kv tiles of 64 in order
+    kx, vx = (t.float().repeat_interleave(group, 1) for t in (k, v))
+    dq = torch.zeros((B, Hq, T, d))
+    for q0 in range(0, T, BM):
+        rows = min(T, q0 + BM) - q0
+        q_first, q_last = off + q0, off + q0 + rows - 1
+        qpos = torch.arange(q_first, q_last + 1)[:, None]
+        sl = slice(q0, q0 + rows)
+        acc = torch.zeros((B, Hq, rows, d))
+        for t in range(*kv_tiles(q_first, q_last, BK, S, causal, window)):
+            k0 = t * BK
+            kt, vt = kx[:, :, k0:k0 + BK], vx[:, :, k0:k0 + BK]
+            x = torch.matmul(qf[:, :, sl], kt.transpose(-1, -2))
+            dp = torch.matmul(gf[:, :, sl], vt.transpose(-1, -2))
+            p = torch.exp2(x * sl2 - lse2[:, :, sl, None])
+            if not tile_full(q_first, q_last, k0, k0 + BK - 1, S, causal,
+                             window):
+                vis = _visible(qpos, torch.arange(k0, k0 + kt.shape[2])[None],
+                               S, causal, window)
+                p = torch.where(vis, p, torch.zeros_like(p))
+            ds = p * (dp - delta[:, :, sl, None])
+            acc = acc + torch.matmul(_bf16(ds), kt)
+        dq[:, :, sl] = acc * scale
+    # dk, dv: one block per 64 keys; the group's heads, then each head's
+    # visible q tiles, in order
+    bq = dkv_bq(d)
+    kf, vf = k.float(), v.float()
+    qg, gg = (t.view(B, Hkv, group, T, d) for t in (qf, gf))
+    lg, dg = (t.view(B, Hkv, group, T) for t in (lse2, delta))
+    dk, dv = torch.zeros((B, Hkv, S, d)), torch.zeros((B, Hkv, S, d))
+    for k0 in range(0, S, DKV_BN):
+        keys = min(S, k0 + DKV_BN) - k0
+        kt, vt = kf[:, :, k0:k0 + keys], vf[:, :, k0:k0 + keys]
+        kpos = torch.arange(k0, k0 + keys)[:, None]
+        gk, gv = torch.zeros((B, Hkv, keys, d)), torch.zeros((B, Hkv, keys, d))
+        for g in range(group):
+            for tq in q_tiles(k0, S, T, bq, causal, window, off):
+                t0 = tq * bq
+                sl = slice(t0, min(T, t0 + bq))
+                qt, gt = qg[:, :, g, sl], gg[:, :, g, sl]
+                x = torch.matmul(kt, qt.transpose(-1, -2))
+                p = torch.exp2(x * sl2 - lg[:, :, g, None, sl])
+                if not (t0 + bq <= T and tile_full(
+                        off + t0, off + t0 + bq - 1, k0, k0 + DKV_BN - 1, S,
+                        causal, window)):
+                    qpos = off + torch.arange(t0, t0 + qt.shape[2])[None]
+                    p = torch.where(_visible(qpos, kpos, S, causal, window),
+                                    p, torch.zeros_like(p))
+                dpt = torch.matmul(vt, gt.transpose(-1, -2))
+                dst = p * (dpt - dg[:, :, g, None, sl])
+                gv = gv + torch.matmul(_bf16(p), gt)
+                gk = gk + torch.matmul(_bf16(dst), qt)
+        dk[:, :, k0:k0 + keys] = gk * scale
+        dv[:, :, k0:k0 + keys] = gv
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=EMU_IDS)
+def test_bf16_kernel_emulation_vs_pallas_and_oracle(case):
+    causal, window, off = case[6:]
+    q, k, v = _inputs(case, "bf16")
+    got, lse = emulate_fwd(*(_torch(a, "bf16") for a in (q, k, v)), causal,
+                           window, off)
+    assert got.dtype == torch.bfloat16 and lse.shape == got.shape[:3]
+    got = got.float().numpy()
+    jq, jk, jv = (_jax(a, "bf16") for a in (q, k, v))
+    pallas = fa_pallas(jq, jk, jv, causal=causal, window=window, q_offset=off,
+                       interpret=True)
+    oracle = ref.attention(jq, jk, jv, causal=causal, window=window,
+                           q_offset=off)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   atol=ATOL["bf16"])
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=EMU_IDS)
+def test_bf16_kernel_emulation_gradients_vs_jax_grad(case):
+    causal, window, off = case[6:]
+    q, k, v = _inputs(case, "bf16", seed=1)
+    g = _inputs(case, "bf16", seed=2)[0]  # dout, bf16 values
+
+    def f(q_, k_, v_):
+        out = ref.attention(q_, k_, v_, causal=causal, window=window,
+                            q_offset=off)
+        return jnp.sum(out * g)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv, tg = (_torch(a, "bf16") for a in (q, k, v, g))
+    out, lse = emulate_fwd(tq, tk, tv, causal, window, off)
+    got = emulate_bwd(tq, tk, tv, out, tg, lse, causal, window, off)
+    for name, a, b in zip("qkv", got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.float().numpy(), b,
+                                   atol=2e-2 * float(np.abs(b).max()),
+                                   err_msg=f"d{name}")
+
+
+def _tile_sweep():
+    shapes = {(c[3], c[4], c[6], c[7], c[8]) for c in EMU_CASES}
+    for T in (1, 63, 64, 65, 130):
+        for S in (1, 64, 100, 129, 300):
+            for off in (0, 1, 64, 200):
+                for window in (0, 1, 17, 64, 100):
+                    for causal in (True, False):
+                        shapes.add((T, S, causal, window, off))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_tile_ranges_vs_element_mask(d):
+    """Every tile the kernels skip holds no visible (q, k) pair; every
+    kept range is tight; every tile classed full is visible whole.
+
+    ``kv_tiles``, ``q_rows``, ``q_tiles`` and ``tile_full`` above are
+    copies of ``Mask::kv_tiles``, ``Mask::q_rows``, ``Mask::q_tiles`` and
+    ``Mask::tile_full`` in ``csrc/flash_attention.cu`` and must be kept in
+    step with them.  The C++ functions themselves are held against the
+    same element mask on the card: ``chip_smoke.py``'s
+    ``check_tile_plan`` runs them through ``flash_attention.tile_plan``."""
+    for T, S, causal, window, off in _tile_sweep():
+        vis = np.broadcast_to(_visible(off + np.arange(T)[:, None],
+                                       np.arange(S)[None], S, causal, window),
+                              (T, S))
+        # forward and dq: kv tiles of each q block
+        for q0 in range(0, T, BM):
+            rows = vis[q0:q0 + BM]
+            q_first, q_last = off + q0, off + q0 + rows.shape[0] - 1
+            lo, hi = kv_tiles(q_first, q_last, BK, S, causal, window)
+            need = np.flatnonzero(rows.any(0)) // BK
+            assert (lo, hi) == ((need.min(), need.max() + 1) if need.size
+                                else (0, 0)), (T, S, causal, window, off)
+            for t in range(lo, hi):
+                if tile_full(q_first, q_last, t * BK, t * BK + BK - 1, S,
+                             causal, window):
+                    assert rows[:, t * BK:t * BK + BK].all()
+                    assert t * BK + BK <= S
+        # dk/dv: q tiles of each key block
+        bq = dkv_bq(d)
+        for k0 in range(0, S, DKV_BN):
+            cols = vis[:, k0:k0 + DKV_BN]
+            tiles = q_tiles(k0, S, T, bq, causal, window, off)
+            need = np.flatnonzero(cols.any(1))
+            assert set(need // bq) <= set(tiles), (T, S, causal, window, off)
+            lo, hi = q_rows(k0, min(S, k0 + DKV_BN) - 1, T, causal, window,
+                            off)
+            assert (lo, hi) == ((need.min(), need.max() + 1) if need.size
+                                else (lo, lo)), (T, S, causal, window, off)
+            for t in tiles:
+                t0 = t * bq
+                if t0 + bq <= T and tile_full(off + t0, off + t0 + bq - 1, k0,
+                                              k0 + DKV_BN - 1, S, causal,
+                                              window):
+                    assert cols[t0:t0 + bq].all() and k0 + DKV_BN <= S

@@ -209,3 +209,13 @@ def test_hierarchical_sim_phases_match_reference(P):
                                         torch.from_numpy(x.copy()))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert _trace(pt) == _trace(rt)
+
+
+def test_sim_transport_default_device_is_the_card():
+    t = PSim(2, device="cpu")
+    assert t.device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert PSim(2).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PSim(2)
