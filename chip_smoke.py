@@ -23,7 +23,9 @@ PyTorch version on the card, and drives the port's two paths:
   kernels, card against CPU);
 * ssm training — the same launcher at the published widths and depth of
   xlstm-125m (``fmi``, 2 ranks), every mLSTM layer forward and backward
-  through the gated-linear-attention scan kernels — and its contract at 8
+  through the gated-linear-attention scan kernels (bf16 on the tensor
+  cores: ``wgmma``, the chunks in parallel; the f32 calls of the contract
+  on the SIMT kernels) — and its contract at 8
   layers (``fmi`` at world 2/4 against ``xla``, int8 compression, card
   against CPU).  The per-(page, head) quantizers, which no path of either
   package calls, are held against their plain versions on the serve
@@ -120,9 +122,14 @@ SSM_ARGS = ["--arch", SSM_ARCH, "--mode", "fmi", "--data-axis", str(SSM_P),
             str(SSM_STEPS)]
 SSM_MLSTM_LAYERS = 9  # 3 groups x 3 mLSTM blocks
 # 0.59 GB parameters, 1.18 GB moments, 1.18 GB stacked gradients, ~2.4 GB
-# of ring copies, 0.82 GB bf16 logits a rank, 1.2 GB of the scan backward's
-# per-tile partials, ~0.6 GB of saved sLSTM steps and chunk states
-SSM_RECKONED_PEAK_GB = 9.0
+# of ring copies, 0.82 GB bf16 logits a rank and ~0.6 GB of saved sLSTM
+# steps and chunk states; the rest of the peak is not attributed.  The scan
+# backward's scratch is not part of it: on an H100 the step peaked at
+# 7.169 GB both with the SIMT route's 1.2 GB of per-value-tile partials and
+# with the bf16 route's 0.15 GB of dC leaving every chunk.  The limit is
+# that reading (anything that prints as 7.169 GB)
+SSM_RECKONED_PEAK_GB = 6.8
+SSM_PEAK_LIMIT_GB = 7.1695
 # gla_scan sweep of tests/test_kernels.py (B, H, T, dk, dv, normalize,
 # chunk) and the two model shapes: one rank's mLSTM call in the ssm
 # training path, and hymba-1.5b's SSD heads
@@ -132,12 +139,26 @@ GLA_CASES = [
     (1, 4, 200, 64, 48, True, 128),
     (1, 1, 512, 16, 16, True, 64),
 ]
+# and the extra gradient cases of tests/test_torch_gla_scan.py: a chunk of
+# 64 with T not a multiple of it (SSD form), and T < 64 (one chunk of 40
+# rows, not a multiple of 16)
+GLA_EDGE = [(1, 2, 150, 16, 32, False, 64), (2, 1, 40, 32, 16, True, 128)]
 GLA_XLSTM = (4, 4, 2048, 384, 384, True, 128)
 GLA_HYMBA = (2, 25, 2048, 16, 64, False, 128)
 GLA_ATOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}  # test_kernels.py:96
-# one bf16 ulp relative: the kernel and the plain version each round their
-# f32 result to bf16, so where |out| >= 8 (the unnormalized SSD heads) two
-# f32 values a hair apart can land one ulp (0.0625 and up) apart
+# forget gates of the checks, log_f = -|N(0, 1)| x decay.  The reference's
+# draw (0.5) decays a 128-step chunk's state by ~e^-51, so the terms that
+# carry the state and its gradient across chunks are checked at ~1e-22 of
+# their size; the weak draw (0.01, ~e^-1 a chunk) checks them at the
+# xlstm shape, with a control that must fail (gla_carry_control)
+GLA_DECAY, GLA_WEAK_DECAY = 0.5, 0.01
+# the kernel's bf16 rounding of its f32 output: at most half an ulp, which
+# is at most 2^-8 |out|; it matters where |out| >= 8 (the unnormalized SSD
+# heads, and the weak-decay mLSTM where the normalizer is small).  So the
+# bf16 forward is held against the plain version's f32 result on the same
+# values: against its bf16 output, two f32 values a hair apart can land a
+# whole ulp apart, which is 2^-7 |out| at the bottom of a binade (0.125
+# at |out| = 16, against 0.0625 from this term)
 BF16_ULP = 2.0**-8
 # the serve phase's whole pool seen as pages: 28 layers x 4 ranks x 64 pages
 PAGE_POOL = (28 * WORLD * PAGES_PER_RANK, PS, 4, 128)
@@ -684,6 +705,25 @@ def device_kernels(fn, iters: int = 3) -> list[str]:
         torch.cuda.synchronize()
     return sorted({e.key for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA})
+
+
+def kernel_ms(fn, iters: int) -> dict[str, float]:
+    """Device ms per call of ``fn`` for each kernel it launches (by short
+    name), from ``torch.profiler`` over ``iters`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = short_name(e.key)
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / iters
+    return out
 
 
 def bound(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
@@ -1289,29 +1329,38 @@ def phase_train_contract(qz, seed: int, dev) -> dict:
                           f"step (< 1e-4)")
     return launches
 
-def gla_inputs(case, dt, g, dev):
-    """Seeded inputs of one gla_scan call (log forget gates <= 0, input
-    gates >= 0, as the reference's tests draw them), requiring grad."""
+def gla_inputs(case, dt, g, dev, decay=GLA_DECAY):
+    """Seeded inputs of one gla_scan call (log forget gates -|N| x decay,
+    input gates >= 0, as the reference's tests draw them), requiring
+    grad."""
     B, H, T, dk, dv = case[:5]
     r = lambda *s: torch.randn(s, generator=g)  # noqa: E731
     ins = [r(B, H, T, dk).to(dt), r(B, H, T, dk).to(dt), r(B, H, T, dv).to(dt),
-           -(r(B, H, T) * 0.5).abs(), r(B, H, T).abs()]
+           -(r(B, H, T) * decay).abs(), r(B, H, T).abs()]
     return [x.to(dev).requires_grad_(True) for x in ins]
 
 
-def gla_check(gs, case, dt, g, dev, bf16_rtol=0.0):
+def gla_check(gs, case, dt, g, dev, bf16_rtol=0.0, decay=GLA_DECAY):
     """gla_scan forward and backward, kernel against plain, at one case:
     returns (output error, state error, largest gradient error as a share
-    of max|plain|)."""
+    of max|plain|, output error against the plain version's bf16 output).
+    The output is held against the plain version's f32 result on the same
+    values (see BF16_ULP)."""
     norm, chunk = case[5:]
-    ins = gla_inputs(case, dt, g, dev)
+    ins = gla_inputs(case, dt, g, dev, decay)
     got, state = gs.gla_scan(*ins, norm, chunk)
     want, want_state = gs.gla_scan_plain(*ins, norm, chunk)
-    diff = (got.detach().float() - want.detach().float()).abs()
+    with torch.no_grad():
+        exact = gs.gla_scan_plain(*(x.float() for x in ins), norm, chunk)[0]
+    got_f = got.detach().float()
+    diff = (got_f - exact).abs()
     err = float(diff.max())
-    limit = GLA_ATOL[dt] + bf16_rtol * want.detach().float().abs()
+    err_bf16 = float((got_f - want.detach().float()).abs().max())
+    limit = GLA_ATOL[dt] + bf16_rtol * exact.abs()
     if not bool(torch.isfinite(got).all()) or bool((diff > limit).any()):
-        raise AssertionError(f"gla_scan forward {case} {dt}: max err {err}")
+        raise AssertionError(f"gla_scan forward {case} {dt}: max err {err} "
+                             f"(against the plain version's {dt} output "
+                             f"{err_bf16})")
     s_err = float((state - want_state.detach()).abs().max())
     if s_err > 2e-3:
         raise AssertionError(f"gla_scan state {case} {dt}: max err {s_err}")
@@ -1327,7 +1376,98 @@ def gla_check(gs, case, dt, g, dev, bf16_rtol=0.0):
             raise AssertionError(f"gla_scan backward d{name} {case} {dt}: max "
                                  f"err {e} > {tol}")
         rel = max(rel, e / scale)
-    return err, s_err, rel
+    return err, s_err, rel, err_bf16
+
+
+def gla_carry_term(ins, out, dout, norms, chunk: int) -> torch.Tensor:
+    """exp(b_L) <dC, C> of every chunk (C the state entering it, dC the
+    gradient of the one leaving it) in float64, on every row of the chunk:
+    the part of dlog_f that carries the state's gradient across chunks,
+    which the scan's gates kernel adds from the state-gradient pass's
+    partials.  ``out``/``norms`` are the forward's (normalize=True),
+    ``dout`` the backward's; T a multiple of the chunk."""
+    q, k, v, lf, ig = (x.detach().double() for x in ins)
+    B, H, T, dk = q.shape
+    L = min(chunk, T)
+    nc = T // L
+
+    def split(x):  # [B, H, nc*L, ...] -> [B, H, nc, L, ...]
+        return x.reshape(x.shape[:2] + (nc, L) + x.shape[3:])
+
+    n = norms.double()
+    den = n.abs().clamp_min(1.0)
+    gn = -torch.sign(n) * (n.abs() > 1) / den * \
+        (dout.double() * out.double()).sum(-1)  # the prep kernel's g
+    dN = split(torch.cat([dout.double() / den[..., None], gn[..., None]], -1))
+    va = split(torch.cat([v, torch.ones_like(v[..., :1])], -1))
+    q, k, lf, ig = split(q * dk**-0.5), split(k), split(lf), split(ig)
+    b = lf.cumsum(-1)
+    ebL = b[..., -1].exp()[..., None, None]           # [B, H, nc, 1, 1]
+    w = (b[..., -1:] - b).exp() * ig
+    C = torch.zeros(q.shape[:2] + (dk, va.shape[-1]), dtype=torch.float64,
+                    device=q.device)
+    states = []
+    for c in range(nc):
+        states.append(C)
+        kw = k[:, :, c] * w[:, :, c, :, None]
+        C = ebL[:, :, c] * C + kw.mT @ va[:, :, c]
+    dC = torch.zeros_like(C)
+    term = torch.zeros((B, H, nc), dtype=torch.float64, device=q.device)
+    for c in reversed(range(nc)):
+        term[:, :, c] = ebL[:, :, c, 0, 0] * (dC * states[c]).sum((-1, -2))
+        dC = ebL[:, :, c] * dC + \
+            (q[:, :, c] * b[:, :, c].exp()[..., None]).mT @ dN[:, :, c]
+    return term.repeat_interleave(L, -1)
+
+
+def gla_carry_control(gs, g, dev) -> str:
+    """The control of the weak-decay check: at the xlstm shape in bf16, the
+    kernels' dlog_f with exp(b_L) <dC, C> taken out (what a gates kernel
+    that dropped the state-gradient pass's partials would give) must fail
+    the 2e-2 x max|plain| limit that the kernels meet; under the
+    reference's decay the term is too small to see.  Returns the readings."""
+    lim, read = 2e-2, []
+    for name, decay in (("reference decay", GLA_DECAY),
+                        ("weak decay", GLA_WEAK_DECAY)):
+        ins = [x.detach() for x in gla_inputs(GLA_XLSTM, torch.bfloat16, g,
+                                              dev, decay)]
+        out, _, saved = gs.gla_scan_fwd(*ins, True, 128, save=True)
+        dout = torch.randn(out.shape, generator=g).to(torch.bfloat16).to(dev)
+        dlf = gs.gla_scan_bwd(*ins, out, dout, saved)[3]
+        leaves = [x.clone().requires_grad_(True) for x in ins]
+        (ref,) = torch.autograd.grad(gs.gla_scan_plain(*leaves)[0], leaves[3],
+                                     dout)
+        term = gla_carry_term(ins, out, dout, saved[2], 128)
+        scale = float(ref.abs().max())
+        ok = float((dlf - ref).abs().max()) / scale
+        bad = float((dlf.double() - term - ref).abs().max()) / scale
+        share = float(term.abs().max()) / scale
+        if ok > lim or (decay == GLA_WEAK_DECAY and bad <= lim):
+            raise AssertionError(f"gla_scan carried-gradient control, {name}: "
+                                 f"kernel {ok}, without the term {bad} x "
+                                 f"max|plain| (limit {lim})")
+        read.append(f"{name}: term up to {share:.3e} x max|plain dlog_f|, "
+                    f"kernel {ok:.3e}, kernel without it {bad:.3e}")
+        del ins, out, saved, dout, dlf, leaves, ref, term
+    return "; ".join(read)
+
+
+def gla_counts(gs) -> tuple[int, int, int, int]:
+    """The scan wrappers' launch counts: all, and the bf16 route's."""
+    return (gs.gla_scan.launches, gs.gla_scan.tc_launches,
+            gs.gla_scan_bwd.launches, gs.gla_scan_bwd.tc_launches)
+
+
+def check_gla_route(gs, before, calls: int, tc: bool) -> None:
+    """``calls`` forward and backward launches since ``before`` went
+    through the bf16 tensor-core route (``tc``) or all through the f32
+    SIMT route."""
+    f, f_tc, b, b_tc = (x - y for x, y in zip(gla_counts(gs), before))
+    want = (calls, calls if tc else 0, calls, calls if tc else 0)
+    if (f, f_tc, b, b_tc) != want:
+        raise AssertionError(f"gla_scan launches (forward, of them bf16 "
+                             f"route, backward, of them bf16 route) "
+                             f"{(f, f_tc, b, b_tc)} != {want}")
 
 
 def gla_bound(case, backward: bool) -> tuple[float, str]:
@@ -1357,36 +1497,96 @@ def phase_ssm_kernel(gs, qz, seed: int, dev) -> tuple[list[dict], dict]:
     g = torch.Generator().manual_seed(seed + 2)
     errs = {"fwd": 0.0, "rel": 0.0}
     for dt in (torch.float32, torch.bfloat16):
-        for case in GLA_CASES:
-            e, _, rel = gla_check(gs, case, dt, g, dev)
+        before = gla_counts(gs)
+        for case in GLA_CASES + GLA_EDGE:
+            e, _, rel, _ = gla_check(gs, case, dt, g, dev)
             errs["fwd"], errs["rel"] = max(errs["fwd"], e), max(errs["rel"], rel)
+        check_gla_route(gs, before, len(GLA_CASES + GLA_EDGE),
+                        dt == torch.bfloat16)
     torch.cuda.synchronize()
-    log("train_kernel", f"gla_scan over {len(GLA_CASES)} cases x f32/bf16: "
-                        f"forward within atol 2e-4/6e-2 of plain (max "
+    log("train_kernel", f"gla_scan over {len(GLA_CASES + GLA_EDGE)} cases x "
+                        f"f32/bf16: "
+                        f"forward within atol 2e-4/6e-2 of plain's f32 "
+                        f"result (max "
                         f"{errs['fwd']:.3e}), state within 2e-3; dq/dk/dv/"
                         f"dlog_f/di_gate within 1e-4 (f32) and 2e-2 (bf16) x "
                         f"max|plain| of autograd through plain (max "
                         f"{errs['rel']:.3e} x max|plain|)")
     for name, case in (("xlstm-125m mLSTM", GLA_XLSTM),
                        ("hymba-1.5b SSD", GLA_HYMBA)):
-        e, s_err, rel = gla_check(gs, case, torch.bfloat16, g, dev,
-                                  bf16_rtol=BF16_ULP)
+        before = gla_counts(gs)
+        e, s_err, rel, e16 = gla_check(gs, case, torch.bfloat16, g, dev,
+                                       bf16_rtol=BF16_ULP)
+        check_gla_route(gs, before, 1, True)
         errs["fwd"], errs["rel"] = max(errs["fwd"], e), max(errs["rel"], rel)
         torch.cuda.synchronize()
         log("train_kernel", f"gla_scan at the {name} shape {case} bf16 vs "
-                            f"plain: forward {e:.3e} (atol 6e-2 + one bf16 "
-                            f"ulp), state {s_err:.3e} (2e-3), gradients "
+                            f"plain: forward {e:.3e} (atol 6e-2 + 2^-8 |out| "
+                            f"of plain's f32 result; {e16:.3e} from its bf16 "
+                            f"output), state {s_err:.3e} (2e-3), gradients "
                             f"{rel:.3e} x max|plain| (2e-2)")
+    for dt in (torch.bfloat16, torch.float32):
+        before = gla_counts(gs)
+        tc = dt == torch.bfloat16
+        e, s_err, rel, e16 = gla_check(gs, GLA_XLSTM, dt, g, dev,
+                                       bf16_rtol=BF16_ULP if tc else 0.0,
+                                       decay=GLA_WEAK_DECAY)
+        check_gla_route(gs, before, 1, tc)
+        errs["fwd"], errs["rel"] = max(errs["fwd"], e), max(errs["rel"], rel)
+        torch.cuda.synchronize()
+        ulp = (f" + 2^-8 |out| of plain's f32 result; {e16:.3e} from its "
+               f"bf16 output" if tc else "")
+        log("train_kernel", f"gla_scan at the xlstm-125m shape {dt}, weak "
+                            f"forget-gate decay (log_f = -|N| x "
+                            f"{GLA_WEAK_DECAY}) vs plain: forward {e:.3e} "
+                            f"(atol {GLA_ATOL[dt]}{ulp}), state {s_err:.3e} "
+                            f"(2e-3), gradients {rel:.3e} x max|plain| "
+                            f"({2e-2 if tc else 1e-4})")
+    log("train_kernel", f"gla_scan carried-gradient control at the xlstm-125m "
+                        f"shape bf16: {gla_carry_control(gs, g, dev)}")
     ins = [x.detach() for x in gla_inputs(GLA_XLSTM, torch.bfloat16, g, dev)]
     out, _, saved = gs.gla_scan_fwd(*ins, True, 128, save=True)
     dout = torch.randn(out.shape, generator=g).to(torch.bfloat16).to(dev)
-    one = gs.gla_scan_bwd(*ins, out, dout, *saved)
-    two = gs.gla_scan_bwd(*ins, out, dout, *saved)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    one = gs.gla_scan_bwd(*ins, out, dout, saved)
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - base
+    out_bytes = sum(t.nbytes for t in one)
+    two = gs.gla_scan_bwd(*ins, out, dout, saved)
     if not all(torch.equal(a, b) for a, b in zip(one, two)):
         raise AssertionError("gla_scan backward: two launches differ")
     del one, two
-    log("train_kernel", "gla_scan backward at the xlstm-125m shape: two "
-                        "launches bitwise equal")
+    log("train_kernel", f"gla_scan backward at the xlstm-125m shape: two "
+                        f"launches bitwise equal; one call allocates "
+                        f"{bwd_peak / 1e9:.6f} GB at its peak, "
+                        f"{(bwd_peak - out_bytes) / 1e9:.6f} GB of it scratch "
+                        f"beyond the gradients it returns "
+                        f"({out_bytes / 1e9:.6f} GB)")
+    for dt, want, refuse in (
+            (torch.bfloat16, ("gla_tc_state_kernel", "gla_tc_out_kernel",
+                              "gla_tc_dstate_kernel", "gla_tc_bwd_key_kernel",
+                              "gla_tc_bwd_query_kernel",
+                              "gla_tc_bwd_gates_kernel"),
+             ("gla_fwd_kernel", "gla_bwd_kernel", "gla_scores_kernel",
+              "gla_bwd_reduce_kernel")),
+            (torch.float32, ("gla_scores_kernel", "gla_fwd_kernel",
+                             "gla_bwd_kernel", "gla_bwd_reduce_kernel"),
+             ("gla_tc_",))):
+        small = [x.detach() for x in gla_inputs(GLA_CASES[2], dt, g, dev)]
+
+        def both():
+            o_, _, sv = gs.gla_scan_fwd(*small, True, 128, save=True)
+            gs.gla_scan_bwd(*small, o_, torch.ones_like(o_), sv)
+
+        names = device_kernels(both)
+        short = sorted({short_name(n) for n in names})
+        if not all(any(w in n for n in names) for w in want) or \
+                any(r in n for r in refuse for n in names):
+            raise AssertionError(f"gla_scan {dt} route launched {short}")
+        log("train_kernel", f"gla_scan {dt} route launched: "
+                            f"{', '.join(short)}")
 
     f_times = {}
     with torch.no_grad():
@@ -1396,8 +1596,14 @@ def phase_ssm_kernel(gs, qz, seed: int, dev) -> tuple[list[dict], dict]:
                 ("kernel2", lambda: gs.gla_scan_fwd(*ins, True, 128)),
                 ("plain2", lambda: gs.gla_scan_plain(*ins))):
             f_times[name] = time_ms(fn, 10)
-    b_dev = {name: time_ms(lambda: gs.gla_scan_bwd(*ins, out, dout, *saved), 5)
+    b_dev = {name: time_ms(lambda: gs.gla_scan_bwd(*ins, out, dout, saved), 5)
              for name in ("kernel", "kernel2")}
+    parts = kernel_ms(lambda: (gs.gla_scan_fwd(*ins, True, 128),
+                               gs.gla_scan_bwd(*ins, out, dout, saved)), 5)
+    log("train_kernel", "gla_scan bf16 at the xlstm-125m shape, device ms per "
+                        "forward + backward call by kernel: " + ", ".join(
+                            f"{k} {v:.6f}" for k, v in sorted(
+                                parts.items(), key=lambda kv: -kv[1])))
     del saved
     leaves = [x.clone().requires_grad_(True) for x in ins]
     b_times = {}
@@ -1505,16 +1711,18 @@ def phase_train_ssm(gs) -> dict:
     from repro_torch.launch import train
 
     before = torch.cuda.memory_allocated()
-    gs.gla_scan.launches = 0
-    gs.gla_scan_bwd.launches = 0
+    gs.gla_scan.launches = gs.gla_scan.tc_launches = 0
+    gs.gla_scan_bwd.launches = gs.gla_scan_bwd.tc_launches = 0
     hist = train.main(SSM_ARGS)
     torch.cuda.synchronize()
     launches = {"gla_scan": gs.gla_scan.launches,
                 "gla_scan_bwd": gs.gla_scan_bwd.launches}
     n = SSM_MLSTM_LAYERS * SSM_P * SSM_STEPS
     want = {"gla_scan": 2 * n, "gla_scan_bwd": n}
-    if launches != want:
-        raise AssertionError(f"gla_scan launches {launches} != {want} (per "
+    tc = (gs.gla_scan.tc_launches, gs.gla_scan_bwd.tc_launches)
+    if launches != want or tc != (2 * n, n):
+        raise AssertionError(f"gla_scan launches {launches}, of them on the "
+                             f"bf16 route {tc}; want {want}, all bf16 (per "
                              f"step: forward 2 x {SSM_MLSTM_LAYERS} mLSTM "
                              f"layers x {SSM_P} ranks with per-group "
                              f"recompute, backward {SSM_MLSTM_LAYERS} x "
@@ -1526,6 +1734,9 @@ def phase_train_ssm(gs) -> dict:
         raise AssertionError(f"ce did not fall: {hist[0]['ce']} -> "
                              f"{hist[-1]['ce']}")
     peak = max(h.get("peak_bytes", 0) for h in hist)
+    if peak > SSM_PEAK_LIMIT_GB * 1e9:
+        raise AssertionError(f"peak device memory {peak / 1e9:.6f} GB > "
+                             f"{SSM_PEAK_LIMIT_GB} GB")
     steady = hist[1:]
     step_ms = sum(h["time_s"] for h in steady) / len(steady) * 1e3
     tok_s = sum(h["tokens_per_s"] for h in steady) / len(steady)
@@ -1533,11 +1744,59 @@ def phase_train_ssm(gs) -> dict:
                      f"batch 8 x 2048: ce {hist[0]['ce']:.4f} -> "
                      f"{hist[-1]['ce']:.4f}; steps 2-{SSM_STEPS} mean "
                      f"{step_ms:.3f} ms/step, {tok_s:.3f} tok/s; peak device "
-                     f"memory {peak / 1e9:.3f} GB (reckoned "
-                     f"{SSM_RECKONED_PEAK_GB:.1f} GB; {before / 1e9:.3f} GB "
-                     f"held before the phase); launches {launches}")
+                     f"memory {peak / 1e9:.6f} GB (limit {SSM_PEAK_LIMIT_GB} "
+                     f"GB, reckoned {SSM_RECKONED_PEAK_GB:.1f} GB; "
+                     f"{before / 1e9:.3f} GB "
+                     f"held before the phase); launches {launches}, all on "
+                     f"the bf16 tensor-core route")
     torch.cuda.empty_cache()
     return launches
+
+
+def ssm_first_step(gs) -> None:
+    """``python3 chip_smoke.py --ssm-first-step``: the ``train_ssm``
+    phase's first step (ce at the initial parameters) with the mLSTM's scan
+    routed three ways: the bf16 tensor-core kernels (as the phase runs it),
+    the plain version on the same bf16 inputs, and the f32 SIMT kernels on
+    them cast up (out cast back to bf16: the arithmetic of a scan that reads
+    bf16 and computes in f32).  Each scan call's output is also held
+    against the plain version's: max and mean |difference|."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    def simt(q, k, v, log_f, i_gate, normalize=True, chunk=128):
+        out, state = gs.gla_scan(q.float(), k.float(), v.float(), log_f,
+                                 i_gate, normalize, chunk)
+        return out.to(q.dtype), state
+
+    kernel = ops.gla_scan
+    args = SSM_ARGS[:SSM_ARGS.index("--steps")] + ["--steps", "1"]
+    try:
+        for name, fn in (("bf16 kernels", kernel),
+                         ("plain (bf16 in)", gs.gla_scan_plain),
+                         ("f32 SIMT kernels", simt)):
+            diffs = []
+
+            def scan(*a, fn=fn, diffs=diffs, **kw):
+                out, state = fn(*a, **kw)
+                with torch.no_grad():
+                    want = gs.gla_scan_plain(*(x.detach() for x in a), **kw)[0]
+                    d = (out.detach().float() - want.float()).abs()
+                    diffs.append((float(d.max()), float(d.mean())))
+                return out, state
+
+            ops.gla_scan = scan
+            hist = train.main(args)
+            log("ssm_first_step", f"scan through the {name}: ce at step 1 "
+                                  f"{hist[0]['ce']:.6f}, loss "
+                                  f"{hist[0]['loss']:.6f}; {len(diffs)} scan "
+                                  f"calls, out vs plain max |diff| "
+                                  f"{max(d[0] for d in diffs):.6e}, mean "
+                                  f"|diff| up to "
+                                  f"{max(d[1] for d in diffs):.6e}")
+            torch.cuda.empty_cache()
+    finally:
+        ops.gla_scan = kernel
 
 
 def ssm_step_breakdown(seed: int, dev) -> None:
@@ -1770,6 +2029,10 @@ def phase_train_ssm_contract(seed: int, dev) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ssm-first-step", action="store_true",
+                    help="build, then only compare the train_ssm phase's "
+                         "first step through each scan route "
+                         "(ssm_first_step); prints no result")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1805,6 +2068,10 @@ def main(argv=None) -> int:
                 kernel = ptxas_kernel(line)
             elif "registers" in line or "spill" in line:
                 log("build", f"{name}: {kernel}: {line.strip()}")
+
+    if args.ssm_first_step:
+        ssm_first_step(gs)
+        return 0
 
     # 3. kernel vs plain, invariances, timings (serving, then training)
     t0 = time.perf_counter()

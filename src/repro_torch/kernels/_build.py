@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface, ``build/repro_torch/lib<name>-<hash>.so`` under the
-repository root, and loaded with :mod:`ctypes`.  The hash covers the source
-and the flags, so an edited source builds anew and an unchanged one is
-reused.  Every source is compiled by its own ``nvcc`` process, all started
+repository root, and loaded with :mod:`ctypes`.  The hash covers the source,
+every shared header ``csrc/*.cuh`` and the flags, so an edited source or
+header builds anew and an unchanged one is reused.  Every source is compiled by its own ``nvcc`` process, all started
 together.  A failed build raises; nothing falls back.
 
 Nothing here runs when the module is imported.
@@ -53,8 +53,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

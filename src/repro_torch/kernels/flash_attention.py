@@ -40,7 +40,7 @@ import ctypes
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import empty_for_kernel, stream_of
+from . import check_aligned, empty_for_kernel, stream_of
 
 NEG_INF = -1e30
 #: Head dims the kernel is compiled for.
@@ -141,19 +141,8 @@ def _check_cuda(q, k, v, window, q_offset):
     if int(window) < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q.dtype == torch.bfloat16:
-        _check_tma(q=q, k=k, v=v)
+        check_aligned(q=q, k=k, v=v)
     return B, Hq, Hkv, T, S, d
-
-
-def _check_tma(**tensors):
-    """The bf16 kernels read their tiles by TMA: every base address on 16
-    bytes.  (Their row strides, d x 2 bytes for d in HEAD_DIMS, are
-    multiples of 16 already.)"""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary for "
-                             f"the bf16 kernels (TMA); got address "
-                             f"{t.data_ptr():#x}")
 
 
 def _lib():
@@ -229,7 +218,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True,
             or tuple(lse.shape) != (B, Hq, T):
         raise ValueError("out/dout must match q and lse must be [B, Hq, T]")
     if q.dtype == torch.bfloat16:
-        _check_tma(dout=dout)
+        check_aligned(dout=dout)
     delta = empty_for_kernel((B, Hq, T), torch.float32, q.device)
     dq = empty_for_kernel(q.shape, q.dtype, q.device)
     dk = empty_for_kernel(k.shape, k.dtype, k.device)

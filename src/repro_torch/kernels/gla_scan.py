@@ -22,7 +22,11 @@ Pieces:
   ``gla_scan.launches``) and whose backward launches the backward kernels
   (one call of :func:`gla_scan_bwd`, counted in
   ``gla_scan_bwd.launches``); a CPU tensor goes to the plain version.
-  Nothing falls back: a CUDA call that the kernels do not take raises.
+  The route is chosen by dtype alone: bf16 runs the tensor-core kernels
+  (``wgmma``, the chunks in parallel; also counted in
+  ``gla_scan.tc_launches`` / ``gla_scan_bwd.tc_launches``), f32 the SIMT
+  kernels.  Nothing falls back: a CUDA call that its route does not take
+  raises.
 * :func:`gla_scan_plain` — the plain PyTorch version, the port of the
   reference's ``repro.kernels.ops._xla_gla_scan``.  Autograd through it
   is the gradient the backward kernel is held against.
@@ -44,15 +48,17 @@ import ctypes
 
 import torch
 
-from . import empty_for_kernel, stream_of
+from . import check_aligned, empty_for_kernel, stream_of
 
 #: The kernels' limits: ``dk`` and ``dv`` are multiples of 16, ``dk`` at
-#: most 384 (the state slice of a value tile lives in shared memory), the
-#: chunk at most 128 steps.
+#: most 384 (the f32 route keeps a value tile's state slice in shared
+#: memory), the chunk at most 128 steps.
 DK_MAX, CHUNK_MAX = 384, 128
-#: Value columns per thread block (``csrc/gla_scan.cu``: ``kTile``).
+#: Value columns per thread block of the f32 route (``csrc/gla_scan.cu``:
+#: ``kTile``).
 TILE = 32
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: Columns of a tile of the bf16 route (dk and dv are cut into 64s).
+TC_TILE = 64
 _STATE_GRAD = ("a gradient on the scan's final state (the recurrent decode "
                "state) is not ported yet (ROADMAP Queue 1, item 14)")
 
@@ -137,7 +143,7 @@ def _check_cuda(q, k, v, log_f, i_gate, chunk):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"gla_scan takes float32 or bfloat16, not {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share a dtype: {q.dtype}, {k.dtype}, "
@@ -172,10 +178,14 @@ def _lib():
     lib = _build.load("gla_scan")
     if lib.gla_scan_fwd_launch.argtypes is None:
         i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-        lib.gla_scan_fwd_launch.argtypes = [p] * 10 + [i] * 7 + [f, i, p]
+        lib.gla_scan_fwd_launch.argtypes = [p] * 10 + [i] * 7 + [f, p]
         lib.gla_scan_fwd_launch.restype = i
-        lib.gla_scan_bwd_launch.argtypes = [p] * 20 + [i] * 7 + [f, i, p]
+        lib.gla_scan_bwd_launch.argtypes = [p] * 20 + [i] * 7 + [f, p]
         lib.gla_scan_bwd_launch.restype = i
+        lib.gla_scan_tc_fwd_launch.argtypes = [p] * 10 + [i] * 7 + [f, p]
+        lib.gla_scan_tc_fwd_launch.restype = i
+        lib.gla_scan_tc_bwd_launch.argtypes = [p] * 22 + [i] * 7 + [f, p]
+        lib.gla_scan_tc_bwd_launch.restype = i
     return lib
 
 
@@ -186,52 +196,89 @@ def _n_tiles(dv: int) -> int:
 def gla_scan_fwd(q, k, v, log_f, i_gate, normalize: bool = True,
                  chunk: int = 128, save: bool = False):
     """Launch the forward kernels on CUDA tensors → ``(out, state, saved)``.
-    With ``save``, ``saved`` is ``(states, norms)`` for the backward: the
-    f32 state entering every chunk ``[B, H, nc, dk, dv+1]`` and the f32
-    normalizer ``q_tᵀ C_t[:, dv]`` of every step ``[B, H, T]``; else
-    ``None``."""
+    With ``save``, ``saved`` is what :func:`gla_scan_bwd` takes: on the f32
+    route ``(states, norms)``, the f32 state entering every chunk ``[B, H,
+    nc, dk, dv+1]`` and the f32 normalizer ``q_tᵀ C_t[:, dv]`` of every step
+    ``[B, H, T]``; on the bf16 route ``(tiles, tiles_n, norms)``, the same
+    states as hi/lo bf16 panel pairs and their f32 normalizer column
+    (:func:`_tc_state_buffers`); else ``None``."""
     B, H, T, dk, dv, L, nc = _check_cuda(q, k, v, log_f, i_gate, chunk)
     dev = q.device
+    tc = q.dtype == torch.bfloat16
+    f32 = torch.float32
     out = empty_for_kernel((B, H, T, dv), q.dtype, dev)
-    state = empty_for_kernel((B, H, dk, dv + 1), torch.float32, dev)
-    scores = empty_for_kernel((B * H, nc, L, L), torch.float32, dev)
-    states = norms = None
-    if save:
-        states = empty_for_kernel((B, H, nc, dk, dv + 1), torch.float32, dev)
-        norms = empty_for_kernel((B, H, T), torch.float32, dev)
+    state = empty_for_kernel((B, H, dk, dv + 1), f32, dev)
+    norms = empty_for_kernel((B, H, T), f32, dev) if save else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
-        err = _lib().gla_scan_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), log_f.data_ptr(),
-            i_gate.data_ptr(), out.data_ptr(), state.data_ptr(),
-            scores.data_ptr(), ptr(states), ptr(norms), B * H, T, dk, dv, L,
-            nc, int(bool(normalize)), dk**-0.5, _DTYPE_CODE[q.dtype],
-            stream_of(q))
+        if tc:  # the output pass reads the chunk states in any case
+            check_aligned(q=q, k=k, v=v)
+            tiles, tiles_n = _tc_state_buffers(B * H, nc, dk, dv, dev)
+            saved = (tiles, tiles_n, norms)
+            err = _lib().gla_scan_tc_fwd_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), log_f.data_ptr(),
+                i_gate.data_ptr(), out.data_ptr(), state.data_ptr(),
+                tiles.data_ptr(), tiles_n.data_ptr(), ptr(norms), B * H, T,
+                dk, dv, L, nc, int(bool(normalize)), dk**-0.5, stream_of(q))
+        else:
+            states = None
+            if save:
+                states = empty_for_kernel((B, H, nc, dk, dv + 1), f32, dev)
+            saved = (states, norms)
+            scores = empty_for_kernel((B * H, nc, L, L), f32, dev)
+            err = _lib().gla_scan_fwd_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), log_f.data_ptr(),
+                i_gate.data_ptr(), out.data_ptr(), state.data_ptr(),
+                scores.data_ptr(), ptr(states), ptr(norms), B * H, T, dk, dv,
+                L, nc, int(bool(normalize)), dk**-0.5, stream_of(q))
     if err != 0:
         raise RuntimeError(f"gla_scan kernel launch failed: cudaError_t {err}")
     gla_scan.launches += 1
-    return out, state, ((states, norms) if save else None)
+    gla_scan.tc_launches += tc
+    return out, state, (saved if save else None)
 
 
-def gla_scan_bwd(q, k, v, log_f, i_gate, out, dout, states, norms,
+def _tc_state_buffers(BH, nc, dk, dv, dev):
+    """The bf16 route's chunk states (or their gradients): hi/lo bf16 panel
+    pairs ``[BH, nc, ceil(dk/64), ceil(dv/64), 2, 64, 64]`` and the f32
+    normalizer column ``[BH, nc, dk]``."""
+    tiles = empty_for_kernel((BH, nc, -(-dk // TC_TILE), -(-dv // TC_TILE), 2,
+                              TC_TILE, TC_TILE), torch.bfloat16, dev)
+    return tiles, empty_for_kernel((BH, nc, dk), torch.float32, dev)
+
+
+def gla_scan_bwd(q, k, v, log_f, i_gate, out, dout, saved,
                  normalize: bool = True, chunk: int = 128):
     """Launch the backward kernels on CUDA tensors → ``(dq, dk, dv, dlog_f,
     di_gate)``, dq/dk/dv in the inputs' dtype and the gate gradients f32.
-    ``states``/``norms`` are the forward's saved tensors.  Deterministic:
-    partial sums over value tiles meet in a fixed order, no atomics."""
+    ``saved`` is the forward's (:func:`gla_scan_fwd`).  Deterministic,
+    no atomics: the f32 route adds per-value-tile partials in a fixed
+    order; the bf16 route writes dq and dk once and adds its small
+    cross-block terms in a fixed order."""
     B, H, T, dk, dv, L, nc = _check_cuda(q, k, v, log_f, i_gate, chunk)
-    dev = q.device
-    for name, t, dt, shape in (
+    dev, f32 = q.device, torch.float32
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        tiles, tiles_n, norms = saved
+        want = [("tiles", tiles, torch.bfloat16, (B * H, nc, -(-dk // TC_TILE),
+                                                  -(-dv // TC_TILE), 2,
+                                                  TC_TILE, TC_TILE)),
+                ("tiles_n", tiles_n, f32, (B * H, nc, dk))]
+    else:
+        states, norms = saved
+        want = [("states", states, f32, (B, H, nc, dk, dv + 1))]
+    for name, t, dt, shape in want + [
             ("out", out, q.dtype, (B, H, T, dv)),
             ("dout", dout, q.dtype, (B, H, T, dv)),
-            ("states", states, torch.float32, (B, H, nc, dk, dv + 1)),
-            ("norms", norms, torch.float32, (B, H, T))):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous() \
-                or tuple(t.shape) != shape:
+            ("norms", norms, f32, (B, H, T))]:
+        if t is None or t.device != dev or t.dtype != dt \
+                or not t.is_contiguous() or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be a contiguous {dt} tensor "
                              f"{shape} on {dev}")
+    if tc:
+        return _tc_bwd(q, k, v, log_f, i_gate, out, dout, saved, normalize,
+                       (B, H, T, dk, dv, L, nc))
     nt = _n_tiles(dv)
-    f32 = torch.float32
     scores = empty_for_kernel((B * H, nc, L, L), f32, dev)
     g = empty_for_kernel((B * H, T), f32, dev)
     dq_part = empty_for_kernel((nt, B * H, T, dk), f32, dev)
@@ -251,13 +298,46 @@ def gla_scan_bwd(q, k, v, log_f, i_gate, out, dout, states, norms,
             g.data_ptr(), dq_part.data_ptr(), dk_part.data_ptr(),
             dlf_part.data_ptr(), dig_part.data_ptr(), dq.data_ptr(),
             dk_.data_ptr(), dv_.data_ptr(), dlf.data_ptr(), dig.data_ptr(),
-            B * H, T, dk, dv, L, nc,
-            int(bool(normalize)), dk**-0.5, _DTYPE_CODE[q.dtype],
+            B * H, T, dk, dv, L, nc, int(bool(normalize)), dk**-0.5,
             stream_of(q))
     if err != 0:
         raise RuntimeError(f"gla_scan backward launch failed: cudaError_t "
                            f"{err}")
     gla_scan_bwd.launches += 1
+    return dq, dk_, dv_, dlf, dig
+
+
+def _tc_bwd(q, k, v, log_f, i_gate, out, dout, saved, normalize, dims):
+    """The bf16 route of :func:`gla_scan_bwd` (checked by it)."""
+    B, H, T, dk, dv, L, nc = dims
+    dev, f32 = q.device, torch.float32
+    tiles, tiles_n, norms = saved
+    check_aligned(q=q, k=k, v=v, out=out, dout=dout)
+    g, dbq, dbk, dww = (empty_for_kernel((B * H, T), f32, dev)
+                        for _ in range(4))
+    dtiles, dtiles_n = _tc_state_buffers(B * H, nc, dk, dv, dev)
+    dcc = empty_for_kernel((B * H, nc, tiles.shape[2] * tiles.shape[3]), f32,
+                           dev)
+    dq = empty_for_kernel(q.shape, q.dtype, dev)
+    dk_ = empty_for_kernel(k.shape, k.dtype, dev)
+    dv_ = empty_for_kernel(v.shape, v.dtype, dev)
+    dlf = empty_for_kernel(log_f.shape, f32, dev)
+    dig = empty_for_kernel(i_gate.shape, f32, dev)
+    with torch.cuda.device(dev):
+        err = _lib().gla_scan_tc_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), log_f.data_ptr(),
+            i_gate.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            tiles.data_ptr(), tiles_n.data_ptr(), norms.data_ptr(),
+            g.data_ptr(), dtiles.data_ptr(), dtiles_n.data_ptr(),
+            dcc.data_ptr(), dbq.data_ptr(), dbk.data_ptr(), dww.data_ptr(),
+            dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), dlf.data_ptr(),
+            dig.data_ptr(), B * H, T, dk, dv, L, nc, int(bool(normalize)),
+            dk**-0.5, stream_of(q))
+    if err != 0:
+        raise RuntimeError(f"gla_scan backward launch failed: cudaError_t "
+                           f"{err}")
+    gla_scan_bwd.launches += 1
+    gla_scan_bwd.tc_launches += 1
     return dq, dk_, dv_, dlf, dig
 
 
@@ -285,9 +365,9 @@ class GlaScanFn(torch.autograd.Function):
             raise NotImplementedError(_STATE_GRAD)
         if dout is None:
             return (None,) * 7
-        q, k, v, log_f, i_gate, out, states, norms = ctx.saved_tensors
+        q, k, v, log_f, i_gate, out, *saved = ctx.saved_tensors
         grads = gla_scan_bwd(q, k, v, log_f, i_gate, out, dout.contiguous(),
-                             states, norms, *ctx.opts)
+                             tuple(saved), *ctx.opts)
         return (*grads, None, None)
 
 
@@ -302,7 +382,10 @@ def gla_scan(q, k, v, log_f, i_gate, normalize: bool = True, chunk: int = 128):
     return GlaScanFn.apply(q, k, v, log_f, i_gate, normalize, chunk)
 
 
-#: Kernel launches since the process started (CUDA calls only); callers
-#: that need a window set them to 0 first.
+#: Kernel launches since the process started (CUDA calls only), and those
+#: of them that took the bf16 tensor-core route; callers that need a
+#: window set them to 0 first.
 gla_scan.launches = 0
 gla_scan_bwd.launches = 0
+gla_scan.tc_launches = 0
+gla_scan_bwd.tc_launches = 0
