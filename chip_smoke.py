@@ -7,7 +7,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all in parallel), holds each against its plain
-PyTorch version on the card, and drives the port's two paths:
+PyTorch version on the card (paged attention also at a long-context shape
+where rows take several splits; flash attention at every (d, dv) pair it
+is compiled for, and timed at hubert-xlarge's and deepseek-v2's MLA
+shapes), and drives the port's two paths:
 
 * serving — ``ContinuousBatchingEngine`` with tensor-parallel decode at
   the published widths of qwen3-1.7b, decode attention through the
@@ -114,6 +117,11 @@ ATT_ATOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 ATT_BLOCK_REL = 2e-2
 # the training shape of one rank's attention call (B, Hq, Hkv, T, d)
 ATT_TRAIN = (2, 32, 8, 2048, 64)
+# full-width flash shapes beyond the training path (name, B, H, T = S, d,
+# dv, causal): hubert-xlarge's encoder, deepseek-v2's MLA (qk_nope 128 +
+# qk_rope 64 against v 128), both MHA
+FLASH_WIDE = [("hubert-xlarge", 2, 16, 1500, 80, 80, False),
+              ("deepseek-v2 MLA", 1, 128, 2048, 192, 128, True)]
 # the ssm training path: xlstm-125m at its published widths and depth, fmi
 # over 2 data-parallel ranks, 4 sequences of 2048 tokens per rank
 SSM_ARCH, SSM_P, SSM_STEPS, SSM_CONTRACT_LAYERS = "xlstm-125m", 2, 8, 8
@@ -162,6 +170,9 @@ GLA_DECAY, GLA_WEAK_DECAY = 0.5, 0.01
 BF16_ULP = 2.0**-8
 # the serve phase's whole pool seen as pages: 28 layers x 4 ranks x 64 pages
 PAGE_POOL = (28 * WORLD * PAGES_PER_RANK, PS, 4, 128)
+# the paged kernel's long-context shape: 4 rows of these lengths (7,620
+# tokens; 512 + 313 + 128 + 1 pages of 8), pools of 1024 pages a rank
+LONG_LENGTHS, LONG_PAGES_PER_RANK = (4096, 2500, 1023, 1), 1024
 # the int8 run's largest per-step loss gap to the uncompressed ring over 6
 # steps at lr 5e-5 (train_contract).  On an H100 the int8 run reads 4.6e-3,
 # a codec that leaves the state unchanged 5.2 and one that drops the last
@@ -278,12 +289,159 @@ def time_ms(fn, iters: int) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 
+def check_invariances(kern, c, tier: str, heads: int, pages_per_rank: int,
+                      rng, dev) -> None:
+    """The five bitwise invariances and the zero-length row of the paged
+    kernel on a case of ``make_case``/``make_long_case`` (stacked pool of
+    WORLD ranks): head partition, row partition, pad columns, page
+    relocation, stacked pool against per-rank calls; a zero-length row is
+    exact 0 and leaves the other rows' bits alone."""
+    kp, vp, ks, vs = tier_pools(c["k"][0], c["v"][0], tier)
+    ks, vs = full_scales(ks, kp), full_scales(vs, vp)
+    args = dict(k_scale=ks, v_scale=vs)
+    full = kern(c["q"], kp, vp, c["table"], c["lengths"],
+                kv_head=c["kv_head"], page_offset=c["page_offset"], **args)
+    for h in range(heads):  # head partition
+        one = kern(c["q"][:, h:h + 1].contiguous(), kp, vp, c["table"],
+                   c["lengths"], kv_head=c["kv_head"][h:h + 1].contiguous(),
+                   page_offset=c["page_offset"][h:h + 1].contiguous(),
+                   **args)
+        assert torch.equal(one[:, 0], full[:, h]), f"{tier} head {h}"
+    for b in range(c["q"].shape[0]):  # row partition
+        one = kern(c["q"][b:b + 1], kp, vp, c["table"][b:b + 1],
+                   c["lengths"][b:b + 1], kv_head=c["kv_head"],
+                   page_offset=c["page_offset"], **args)
+        assert torch.equal(one[0], full[b]), f"{tier} row {b}"
+    # pad columns: one and three, and enough to add a split to every row's
+    # grid (npm * ps past the next multiple of a split's tokens)
+    from repro_torch.kernels.paged_attention import plan
+
+    split = plan(PS, kp.shape[-1], vp.shape[-1], kp.element_size())[1]
+    for extra in (1, 3, split // PS + 1):
+        padded = torch.cat([c["table"], torch.zeros(
+            (c["table"].shape[0], extra), dtype=torch.int32,
+            device=dev)], dim=1)
+        got = kern(c["q"], kp, vp, padded, c["lengths"],
+                   kv_head=c["kv_head"], page_offset=c["page_offset"],
+                   **args)
+        assert torch.equal(got, full), f"{tier} pad {extra}"
+    # page relocation: the same permutation inside every rank's region
+    perm = rng.permutation(pages_per_rank)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(pages_per_rank)
+    gperm = torch.as_tensor(np.concatenate(
+        [r * pages_per_rank + perm for r in range(WORLD)]), device=dev)
+    tbl = torch.as_tensor(inv[c["table"].cpu().numpy()].astype(np.int32),
+                          device=dev)
+    got = kern(c["q"], kp[gperm].contiguous(), vp[gperm].contiguous(),
+               tbl, c["lengths"], k_scale=ks[gperm].contiguous(),
+               v_scale=vs[gperm].contiguous(), kv_head=c["kv_head"],
+               page_offset=c["page_offset"])
+    assert torch.equal(got, full), f"{tier} page relocation"
+    # stacked pool vs per-rank calls (plain GQA heads of one rank's shard)
+    Hl = heads // WORLD
+    for r in range(WORLD):
+        sl = slice(r * pages_per_rank, (r + 1) * pages_per_rank)
+        one = kern(c["q"][:, r * Hl:(r + 1) * Hl].contiguous(),
+                   kp[sl].contiguous(), vp[sl].contiguous(), c["table"],
+                   c["lengths"], k_scale=ks[sl].contiguous(),
+                   v_scale=vs[sl].contiguous())
+        assert torch.equal(one, full[:, r * Hl:(r + 1) * Hl]), \
+            f"{tier} rank {r}"
+    # zero-length row: exact zero, other rows untouched
+    q0 = torch.cat([c["q"], c["q"][:1]])
+    t0 = torch.cat([c["table"], c["table"][:1]])
+    l0 = torch.cat([c["lengths"], torch.zeros(1, dtype=torch.int32,
+                                              device=dev)])
+    got = kern(q0, kp, vp, t0, l0, kv_head=c["kv_head"],
+               page_offset=c["page_offset"], **args)
+    assert torch.equal(got[:-1], full), f"{tier} zero row perturbs"
+    assert bool((got[-1] == 0).all()), f"{tier} zero row not exact 0"
+
+
+def make_long_case(rng, heads: int, hd: int, kv_heads: int, dev,
+                   stacked: bool) -> dict:
+    """The long-context shape at one layer: rows of LONG_LENGTHS tokens in
+    8-token pages, each row's pages distinct ids of a pool of
+    LONG_PAGES_PER_RANK pages (pad columns page 0).  ``stacked``: WORLD
+    ranks' pools stacked, ``kv_heads`` heads each, and the TP engine's head
+    maps; else one pool of ``kv_heads`` heads in plain GQA (no maps)."""
+    lens = np.array(LONG_LENGTHS, np.int32)
+    need = -(-lens // PS)
+    npm = int(need.max())
+    ranks = WORLD if stacked else 1
+    f = lambda *s: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32), device=dev)
+    q = f(len(lens), heads, hd)
+    k = f(1, ranks * LONG_PAGES_PER_RANK, PS, kv_heads, hd)
+    v = f(1, ranks * LONG_PAGES_PER_RANK, PS, kv_heads, hd)
+    ids = rng.permutation(LONG_PAGES_PER_RANK)
+    table = np.zeros((len(lens), npm), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        table[b, :n] = ids[at:at + n]
+        at += n
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    c = dict(q=q, k=k, v=v, table=i32(table), lengths=i32(lens),
+             lengths_np=lens, kv_head=None, page_offset=None)
+    if stacked:
+        hs = np.arange(heads)
+        c.update(kv_head=i32(hs % kv_heads),
+                 page_offset=i32((hs // kv_heads) * LONG_PAGES_PER_RANK))
+    return c
+
+
+def gathered_kv(c, k, v):
+    """K/V of every row and head gathered contiguously through the table
+    and head maps, ``[B, H, npm * ps, d]`` (H the q heads where maps are
+    given, else the pool's kv heads), and the length mask: the SDPA
+    yardstick's inputs."""
+    B, npm = c["table"].shape
+    S = npm * PS
+    if c["kv_head"] is None:
+        pages = c["table"].long()[:, None, :].expand(B, k.shape[2], npm)
+        hsel = torch.arange(k.shape[2], device=k.device)[None, :, None]
+    else:
+        pages = c["table"].long()[:, None, :] + \
+            c["page_offset"].long()[None, :, None]
+        hsel = c["kv_head"].long()[None, :, None]
+    hsel = hsel.expand_as(pages)
+    H = pages.shape[1]
+    kk = k[pages, :, hsel].reshape(B, H, S, -1).contiguous()
+    vv = v[pages, :, hsel].reshape(B, H, S, -1).contiguous()
+    mask = (torch.arange(S, device=k.device)[None, :] <
+            c["lengths"].long()[:, None])[:, None, None, :]
+    return kk, vv, mask
+
+
+def paged_bound(c, q_heads: int, kv_rows: int, hd: int, elem: int,
+                scaled: bool) -> tuple[float, str, int]:
+    """(least ms, what bounds it, bytes): each visible token's K and V row
+    read once per distinct kv head (``kv_rows`` of them), q read and out
+    written once (f32), per-page scales where the pool has them; the
+    operations are 4 a visible (token, q head, column): q . k and p . v."""
+    tokens = int(c["lengths_np"].sum())
+    B = len(c["lengths_np"])
+    nbytes = 2 * kv_rows * tokens * hd * elem + 2 * B * q_heads * hd * 4
+    if scaled:
+        nbytes += 2 * kv_rows * int((-(-c["lengths_np"] // PS)).sum()) * 4
+    b_ms, by = bound(nbytes, 4.0 * q_heads * tokens * hd, F32_FLOPS)
+    return b_ms, by, nbytes
+
+
 def phase_kernel(pa, cfg, seed: int, dev) -> dict:
     """Kernel vs plain on all four pool tiers, the five bitwise
     invariances, the zero-length row, and the timings, at the head widths
-    and depth of ``cfg``."""
+    and depth of ``cfg``: at the serve phase's decode shape, and at the
+    long-context shape (LONG_LENGTHS) where rows take several splits and
+    the merge runs, as the serving call (stacked pool of WORLD ranks) and
+    in plain GQA at the published config's kv heads (the serve phase's
+    toy decoder is MHA)."""
+    from repro_torch import configs
+
     rng = np.random.default_rng(seed)
     HQ, HD = cfg.n_heads, cfg.head_dim
+    HKV = configs.get(ARCH).n_kv_heads
     kern, plain = pa.paged_attention, pa.paged_attention_plain
     max_err = 0.0
 
@@ -293,16 +451,15 @@ def phase_kernel(pa, cfg, seed: int, dev) -> dict:
                     kv_head=c["kv_head"], page_offset=c["page_offset"])
         return kern(**args), plain(**args)
 
-    for rows, npm in ((4, 4), (8, 8), (8, 5)):
-        c = make_case(rng, cfg, rows, npm, dev)
-        k, v = c["k"][0], c["v"][0]
+    def tiers(c, names, where):
+        nonlocal max_err
         f32_out = None
-        for tier in ("f32", "bf16", "int8", "fp8"):
-            kp, vp, ks, vs = tier_pools(k, v, tier)
+        for tier in names:
+            kp, vp, ks, vs = tier_pools(c["k"][0], c["v"][0], tier)
             got, want = both(c, kp, vp, ks, vs)
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
-                raise AssertionError(f"{tier} rows={rows}: non-finite output")
+                raise AssertionError(f"{tier} {where}: non-finite output")
             torch.testing.assert_close(got, want, **TIER_ORACLE)
             max_err = max(max_err, float((got - want).abs().max()))
             if tier == "f32":
@@ -311,77 +468,29 @@ def phase_kernel(pa, cfg, seed: int, dev) -> dict:
                 torch.testing.assert_close(got, f32_out, **TIER_INT8_VS_F32)
                 if torch.equal(got, f32_out):
                     raise AssertionError("int8 tier equals f32: not quantized")
+
+    for rows, npm in ((4, 4), (8, 8), (8, 5)):
+        c = make_case(rng, cfg, rows, npm, dev)
+        tiers(c, ("f32", "bf16", "int8", "fp8"), f"rows={rows}")
         log("kernel", f"rows={rows} npm={npm}: f32/bf16/int8/fp8 within "
                       f"rtol=atol=2e-6 of plain, int8 within atol=5e-2 of f32")
 
     # invariances (bitwise), on the f32 and int8 tiers
     c = make_case(rng, cfg, 6, 5, dev)
     for tier in ("f32", "int8"):
-        kp, vp, ks, vs = tier_pools(c["k"][0], c["v"][0], tier)
-        ks, vs = full_scales(ks, kp), full_scales(vs, vp)
-        args = dict(k_scale=ks, v_scale=vs)
-        full = kern(c["q"], kp, vp, c["table"], c["lengths"],
-                    kv_head=c["kv_head"], page_offset=c["page_offset"], **args)
-        for h in range(HQ):  # head partition
-            one = kern(c["q"][:, h:h + 1].contiguous(), kp, vp, c["table"],
-                       c["lengths"], kv_head=c["kv_head"][h:h + 1].contiguous(),
-                       page_offset=c["page_offset"][h:h + 1].contiguous(),
-                       **args)
-            assert torch.equal(one[:, 0], full[:, h]), f"{tier} head {h}"
-        for b in range(c["q"].shape[0]):  # row partition
-            one = kern(c["q"][b:b + 1], kp, vp, c["table"][b:b + 1],
-                       c["lengths"][b:b + 1], kv_head=c["kv_head"],
-                       page_offset=c["page_offset"], **args)
-            assert torch.equal(one[0], full[b]), f"{tier} row {b}"
-        for extra in (1, 3):  # pad columns
-            padded = torch.cat([c["table"], torch.zeros(
-                (c["table"].shape[0], extra), dtype=torch.int32,
-                device=dev)], dim=1)
-            got = kern(c["q"], kp, vp, padded, c["lengths"],
-                       kv_head=c["kv_head"], page_offset=c["page_offset"],
-                       **args)
-            assert torch.equal(got, full), f"{tier} pad {extra}"
-        # page relocation: the same permutation inside every rank's region
-        perm = rng.permutation(PAGES_PER_RANK)
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(PAGES_PER_RANK)
-        gperm = torch.as_tensor(np.concatenate(
-            [r * PAGES_PER_RANK + perm for r in range(WORLD)]), device=dev)
-        tbl = torch.as_tensor(inv[c["table"].cpu().numpy()].astype(np.int32),
-                              device=dev)
-        got = kern(c["q"], kp[gperm].contiguous(), vp[gperm].contiguous(),
-                   tbl, c["lengths"], k_scale=ks[gperm].contiguous(),
-                   v_scale=vs[gperm].contiguous(), kv_head=c["kv_head"],
-                   page_offset=c["page_offset"])
-        assert torch.equal(got, full), f"{tier} page relocation"
-        # stacked pool vs per-rank calls
-        Hl = HQ // WORLD
-        for r in range(WORLD):
-            sl = slice(r * PAGES_PER_RANK, (r + 1) * PAGES_PER_RANK)
-            one = kern(c["q"][:, r * Hl:(r + 1) * Hl].contiguous(),
-                       kp[sl].contiguous(), vp[sl].contiguous(), c["table"],
-                       c["lengths"], k_scale=ks[sl].contiguous(),
-                       v_scale=vs[sl].contiguous())
-            assert torch.equal(one, full[:, r * Hl:(r + 1) * Hl]), \
-                f"{tier} rank {r}"
-        # zero-length row: exact zero, other rows untouched
-        q0 = torch.cat([c["q"], c["q"][:1]])
-        t0 = torch.cat([c["table"], c["table"][:1]])
-        l0 = torch.cat([c["lengths"], torch.zeros(1, dtype=torch.int32,
-                                                  device=dev)])
-        got = kern(q0, kp, vp, t0, l0, kv_head=c["kv_head"],
-                   page_offset=c["page_offset"], **args)
-        assert torch.equal(got[:-1], full), f"{tier} zero row perturbs"
-        assert bool((got[-1] == 0).all()), f"{tier} zero row not exact 0"
+        check_invariances(kern, c, tier, HQ, PAGES_PER_RANK, rng, dev)
     torch.cuda.synchronize()
-    log("kernel", "bitwise: head partition, row partition, pad columns, "
-                  "page relocation, stacked pool vs per-rank, zero-length "
-                  "row = exact 0 (f32 and int8 pools)")
+    log("kernel", "bitwise: head partition, row partition, pad columns "
+                  "(1, 3, and a split's pages + 1: a second split in every "
+                  "row's grid), page "
+                  "relocation, stacked pool vs per-rank, zero-length row = "
+                  "exact 0 (f32 and int8 pools)")
 
     # timing at the decode shape of the serve phase, called as the engine
     # calls it (scales passed in, deterministic mode on): 4 rows, 4 pages
     # each, rotating over every layer's pool so the pages come from device
-    # memory
+    # memory.  Drawn before the long-context cases, so that cases added
+    # after it leave its inputs, and its times comparable, as they were
     layers = cfg.n_layers
     c = make_case(rng, cfg, 4, 4, dev, layers=layers)
     lens = c["lengths_np"]
@@ -401,23 +510,14 @@ def phase_kernel(pa, cfg, seed: int, dev) -> dict:
               page_offset=c["page_offset"])
 
     # the library yardstick: SDPA over K/V already gathered contiguously
-    S = c["table"].shape[1] * PS
-    gathered = []
-    for i in range(layers):
-        pages = (c["table"].long()[:, None, :] +
-                 c["page_offset"].long()[None, :, None])  # [B, Hq, npm]
-        hsel = c["kv_head"].long()[None, :, None].expand_as(pages)
-        kk = c["k"][i][pages, :, hsel].reshape(4, HQ, S, HD)
-        vv = c["v"][i][pages, :, hsel].reshape(4, HQ, S, HD)
-        gathered.append((kk.contiguous(), vv.contiguous()))
-    mask = (torch.arange(S, device=dev)[None, :] <
-            c["lengths"].long()[:, None])[:, None, None, :]  # [B, 1, 1, S]
+    gathered = [gathered_kv(c, c["k"][i], c["v"][i]) for i in range(layers)]
     q4 = c["q"][:, :, None, :]
 
     def run_library():
         i = state["i"] = (state["i"] + 1) % layers
+        kk, vv, mask = gathered[i]
         torch.nn.functional.scaled_dot_product_attention(
-            q4, gathered[i][0], gathered[i][1], attn_mask=mask)
+            q4, kk, vv, attn_mask=mask)
 
     times = {}
     for name, fn in (("plain", run_plain), ("kernel", run_kernel),
@@ -426,14 +526,7 @@ def phase_kernel(pa, cfg, seed: int, dev) -> dict:
         times[name] = time_ms(fn, 280)
     ms = min(times["kernel"][0], times["kernel2"][0])
     plain_ms = min(times["plain"][0], times["plain2"][0])
-    # least work: each visible token's K and V row read once per head, q
-    # read once, out written once; table/lengths/head maps are negligible
-    kv_bytes = int(2 * HQ * int(lens.sum()) * HD * 4)
-    io_bytes = kv_bytes + 2 * 4 * HQ * HD * 4
-    flops = 4.0 * HQ * int(lens.sum()) * HD
-    bound_bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / F32_FLOPS * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    bound_ms, bound_by, io_bytes = paged_bound(c, HQ, HQ, HD, 4, False)
     log("kernel", f"decode shape rows=4 Hq={HQ} d={HD} ps={PS} npm=4 "
                   f"lengths={lens.tolist()}, device time per call (stream "
                   f"span per call incl. host gaps): kernel "
@@ -442,16 +535,108 @@ def phase_kernel(pa, cfg, seed: int, dev) -> dict:
                   f"plain {times['plain'][0]:.6f}/{times['plain2'][0]:.6f} ms "
                   f"({times['plain'][1]:.6f}/{times['plain2'][1]:.6f}), "
                   f"SDPA on gathered K/V {times['library'][0]:.6f} ms "
-                  f"({times['library'][1]:.6f}); moves {io_bytes} B "
-                  f"({kv_bytes} B of K/V, {io_bytes - kv_bytes} B of q and "
-                  f"out), bound {bound_ms:.6f} ms at 3.35 TB/s")
+                  f"({times['library'][1]:.6f}); moves {io_bytes} B, bound "
+                  f"{bound_ms:.6f} ms ({bound_by}) at 3.35 TB/s")
+    del c, gathered
+
+    # the long-context shape: (i) the serving call, stacked pool of WORLD
+    # ranks, HQ / WORLD kv heads each; (ii) plain GQA at the config's kv
+    # heads.  Every tier against plain, the invariances where rows take
+    # several splits, GQA groups against single heads
+    long_i = make_long_case(rng, HQ, HD, HQ // WORLD, dev, stacked=True)
+    long_ii = make_long_case(rng, HQ, HD, HKV, dev, stacked=False)
+    for c, tag in ((long_i, "(i) stacked"), (long_ii, "(ii) GQA")):
+        tiers(c, ("f32", "bf16", "int8", "fp8"), f"long {tag}")
+    for tier in ("f32", "int8"):
+        check_invariances(kern, long_i, tier, HQ, LONG_PAGES_PER_RANK, rng,
+                          dev)
+    group = HQ // HKV
+    for tier in ("bf16", "f32"):
+        kp, vp, ks, vs = tier_pools(long_ii["k"][0], long_ii["v"][0], tier)
+        grouped = kern(long_ii["q"], kp, vp, long_ii["table"],
+                       long_ii["lengths"])
+        maps = torch.arange(HQ, device=dev, dtype=torch.int32) // group
+        single = kern(long_ii["q"], kp, vp, long_ii["table"],
+                      long_ii["lengths"], kv_head=maps,
+                      page_offset=torch.zeros_like(maps))
+        assert torch.equal(grouped, single), f"{tier} GQA group {group}"
+    plans = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        elem = torch.empty((), dtype=dt).element_size()
+        want = pa.plan(PS, HD, HD, elem)
+        got = pa.kernel_plan(PS, HD, HD, dt)
+        if got[:2] != want:
+            raise AssertionError(f"plan {dt}: library {got}, wrapper {want}")
+        plans[str(dt).split(".")[-1]] = got
+    torch.cuda.synchronize()
+    log("kernel", f"long-context shape, lengths {list(LONG_LENGTHS)} (ps "
+                  f"{PS}, Hq {HQ}, d {HD}): (i) stacked pool of {WORLD} ranks "
+                  f"x {HQ // WORLD} kv heads and (ii) plain GQA over "
+                  f"{HKV} kv heads, f32/bf16/int8/fp8 within "
+                  f"rtol=atol=2e-6 of plain, int8 within atol=5e-2 of f32; "
+                  f"(i) bitwise: head/row partition, pad columns, page "
+                  f"relocation, stacked vs per-rank, zero row (f32, int8); "
+                  f"(ii) GQA group {group} = single heads bitwise (bf16, "
+                  f"f32); plans (chunk, split, shared bytes) library = "
+                  f"wrapper: {plans}")
+
+    # timing at the long-context shape: (i) f32 and int8, (ii) bf16.  K/V
+    # read by one call: 124.8 MB, 31.2 MB and 31.2 MB; the int8 and bf16
+    # calls cycle over three pools, so that the calls together exceed the
+    # 50 MB L2
+    for c, tier, tag, kv_rows in ((long_i, "f32", "(i)", HQ),
+                                  (long_i, "int8", "(i)", HQ),
+                                  (long_ii, "bf16", "(ii)", HKV)):
+        sets = []
+        for _ in range(1 if tier == "f32" else 3):
+            kp, vp, ks, vs = tier_pools(c["k"][0], c["v"][0], tier)
+            sets.append((kp, vp, full_scales(ks, kp), full_scales(vs, vp)))
+            if tier != "f32":
+                c = dict(c, k=c["k"] + 0.0, v=c["v"] + 0.0)  # fresh copies
+        st = {"i": 0}
+
+        def call(fn, c=c, sets=sets, st=st):
+            kp, vp, ks, vs = sets[st["i"] % len(sets)]
+            st["i"] += 1
+            return fn(c["q"], kp, vp, c["table"], c["lengths"], k_scale=ks,
+                      v_scale=vs, kv_head=c["kv_head"],
+                      page_offset=c["page_offset"])
+
+        lt = {name: time_ms(lambda fn=fn: call(fn), 40) for name, fn in
+              (("plain", plain), ("kernel", kern), ("kernel2", kern),
+               ("plain2", plain))}
+        lib = "n/a (no SDPA on int8 K/V)"
+        if tier != "int8":
+            dt = torch.float32 if tier == "f32" else torch.bfloat16
+            kk, vv, mask = gathered_kv(c, sets[0][0].to(dt),
+                                       sets[0][1].to(dt))
+            qq = c["q"][:, :, None, :].to(dt)
+            gqa = c["kv_head"] is None and kk.shape[1] != HQ
+            lib_ms = time_ms(lambda: torch.nn.functional.
+                             scaled_dot_product_attention(
+                                 qq, kk, vv, attn_mask=mask,
+                                 enable_gqa=gqa), 40)[0]
+            lib = f"{lib_ms:.6f} ms"
+            del kk, vv
+        elem = sets[0][0].element_size()
+        b_ms, b_by, nbytes = paged_bound(c, HQ, kv_rows, HD, elem,
+                                         tier == "int8")
+        log("kernel", f"long-context shape {tag} {tier}: kernel "
+                      f"{lt['kernel'][0]:.6f}/{lt['kernel2'][0]:.6f} ms "
+                      f"(stream {lt['kernel'][1]:.6f}), plain "
+                      f"{lt['plain'][0]:.6f}/{lt['plain2'][0]:.6f} ms, SDPA on "
+                      f"gathered K/V {lib}; moves {nbytes} B, bound "
+                      f"{b_ms:.6f} ms ({b_by}) at 3.35 TB/s; kernel at "
+                      f"{100 * b_ms / min(lt['kernel'][0], lt['kernel2'][0]):.1f}"
+                      f"% of its bound")
+        del sets
+    del long_i, long_ii
+    torch.cuda.empty_cache()
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:131",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else
-            "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": times["library"][0]}
 
 
@@ -672,15 +857,20 @@ def block_rel_err(a, b, rows: int = 64) -> float:
     return float(rel.max())
 
 
+_MANGLED = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16",
+            "13__nv_fp8_e4m3": "e4m3"}
+_ARG = r"f|a|13__nv_bfloat16|13__nv_fp8_e4m3|Li(\d+)E"
+
+
 def ptxas_kernel(line: str) -> str:
     """The kernel that a ptxas ``Compiling entry function '<mangled>'``
-    line names, with its dtype and head dim where it has them."""
-    m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(f|13__nv_bfloat16)?Li(\d+)E)?",
-                  line)
+    line names, with its template arguments (storage or compute type, head
+    widths) where it has them."""
+    m = re.search(rf"\d([a-z][a-z_]*_kernel)(I(?:{_ARG})+E)?", line)
     if m is None:
         return line.strip()[-60:]
-    args = [a for a in ({"f": "f32", "13__nv_bfloat16": "bf16"}.get(m[2]),
-                        m[3]) if a]
+    args = [t[1] or _MANGLED[t[0]]
+            for t in re.findall(rf"({_ARG})", m[2] or "")]
     return m[1] + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -740,7 +930,7 @@ def check_tile_plan(fa) -> int:
     mask over ``ATT_CASES`` and a sweep of lengths, offsets and windows:
     every skipped tile holds no visible (q, k) pair, every kept range is
     tight, every tile classed full is visible whole.  Returns the number
-    of (shape, head dim) plans checked."""
+    of (shape, (d, dv)) plans checked."""
     shapes = {(c[3], c[4], c[6], c[7], c[8]) for c in ATT_CASES}
     shapes |= {(T, S, causal, window, off) for T in (1, 63, 64, 65, 130)
                for S in (1, 64, 100, 129, 300) for off in (0, 1, 64, 200)
@@ -754,11 +944,11 @@ def check_tile_plan(fa) -> int:
         if window:
             vis = vis & (kpos > qpos - window)
         vis = np.broadcast_to(vis, (T, S))
-        for d in fa.HEAD_DIMS:
+        for d, dv in fa.SHAPES:
             plan = {k: v.numpy() if torch.is_tensor(v) else v
-                    for k, v in fa.tile_plan(T, S, d, causal, window,
+                    for k, v in fa.tile_plan(T, S, d, dv, causal, window,
                                              off).items()}
-            where = (T, S, causal, window, off, d)
+            where = (T, S, causal, window, off, d, dv)
             for i, (lo, hi) in enumerate(plan["kv"]):  # forward and dQ
                 rows = vis[64 * i:64 * i + 64]
                 need = np.flatnonzero(rows.any(0)) // 64
@@ -794,6 +984,95 @@ def check_tile_plan(fa) -> int:
     return n
 
 
+def sdpa_bwd_ms(fwd, inputs, dout, iters: int) -> tuple[float, str]:
+    """``time_bwd_ms`` of an SDPA forward, with deterministic mode off for
+    this call only where it refuses SDPA's backward; and the note."""
+    try:
+        return time_bwd_ms(fwd, inputs, dout, iters), "deterministic mode on"
+    except RuntimeError as e:  # deterministic mode refuses SDPA's backward
+        torch.use_deterministic_algorithms(False)
+        try:
+            return (time_bwd_ms(fwd, inputs, dout, iters),
+                    f"deterministic mode off for this call only "
+                    f"({e})"[:160])
+        finally:
+            torch.use_deterministic_algorithms(True)
+
+
+def flash_wide(fa, rnd) -> None:
+    """The bf16 flash kernels at two full-width shapes the configs reach
+    (FLASH_WIDE): forward and backward against plain (ATT_ATOL, gradients
+    within 2% of max|plain|, every 64-row block within ATT_BLOCK_REL), then
+    device ms of kernel, plain and SDPA beside the bound."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, B, H, T, d, dv, causal in FLASH_WIDE:
+        bf = torch.bfloat16
+        q, k, v = rnd((B, H, T, d), bf), rnd((B, H, T, d), bf), rnd((B, H, T, dv), bf)
+        dout = rnd((B, H, T, dv), bf)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        got = fa.flash_attention(qg, kg, vg, causal)
+        want = fa.flash_attention_plain(qg, kg, vg, causal)
+        err = float((got.detach().float() - want.detach().float()).abs().max())
+        if not bool(torch.isfinite(got).all()) or err > ATT_ATOL[bf]:
+            raise AssertionError(f"flash forward {name} bf16: max err {err}")
+        grads = torch.autograd.grad(got, (qg, kg, vg), dout)
+        refs = torch.autograd.grad(want, (qg, kg, vg), dout)
+        errs = []
+        for n, a, b in zip("qkv", grads, refs):
+            tol = 2e-2 * float(b.float().abs().max())
+            e = float((a.float() - b.float()).abs().max())
+            if not bool(torch.isfinite(a).all()) or e > tol:
+                raise AssertionError(f"flash backward d{n} {name}: max err "
+                                     f"{e} > {tol}")
+            errs.append(f"d{n} {e:.3e} (tol {tol:.3e})")
+        rels = [block_rel_err(a, b) for a, b in
+                zip((got, *grads), (want, *refs))]
+        if not max(rels) <= ATT_BLOCK_REL:
+            raise AssertionError(f"flash {name}: a 64-row block is "
+                                 f"{max(rels)} of its norm off plain")
+        del got, want, grads, refs
+        with torch.no_grad():
+            f_k = [time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal, 0,
+                                                          0), 10)[0]
+                   for _ in range(2)]
+            f_p = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal),
+                          3)[0]
+            try:
+                f_l = f"{time_ms(lambda: sdpa(q, k, v, is_causal=causal), 10)[0]:.6f}"
+            except RuntimeError as e:
+                f_l = f"refused ({e})"[:120]
+        b_k = [time_bwd_ms(lambda: fa.flash_attention(qg, kg, vg, causal),
+                           (qg, kg, vg), dout, 5) for _ in range(2)]
+        b_p = time_bwd_ms(lambda: fa.flash_attention_plain(qg, kg, vg, causal),
+                          (qg, kg, vg), dout, 2)
+        try:
+            b_l, note = sdpa_bwd_ms(lambda: sdpa(qg, kg, vg, is_causal=causal),
+                                    (qg, kg, vg), dout, 5)
+            b_l = f"{b_l:.6f} ({note})"
+        except RuntimeError as e:
+            b_l = f"refused ({e})"[:120]
+        pairs = T * (T + 1) // 2 if causal else T * T
+        io = 2 * B * H * T * (2 * d + 2 * dv)  # q, k; v, out
+        f_bound, f_by = bound(io + 4 * B * H * T,
+                              2.0 * B * H * pairs * (d + dv), BF16_FLOPS)
+        b_io = 2 * B * H * T * (3 * d + 3 * dv) + 4 * B * H * T
+        b_bound, b_by = bound(b_io, 2.0 * B * H * pairs * (3 * d + 2 * dv),
+                              BF16_FLOPS)
+        log("train_kernel", f"flash_attention {name} (B {B}, H {H}, T = S = "
+                            f"{T}, d {d}, dv {dv}, "
+                            f"{'causal' if causal else 'bidirectional'}, "
+                            f"bf16) vs plain: forward {err:.3e}, "
+                            f"{', '.join(errs)}, 64-row blocks "
+                            f"{max(rels):.3e}; forward device ms kernel "
+                            f"{f_k[0]:.6f}/{f_k[1]:.6f}, plain {f_p:.6f}, "
+                            f"SDPA {f_l}, bound {f_bound:.6f} ({f_by}); "
+                            f"backward stream ms kernel {b_k[0]:.6f}/"
+                            f"{b_k[1]:.6f}, plain {b_p:.6f}, SDPA {b_l}, "
+                            f"bound {b_bound:.6f} ({b_by})")
+        del q, k, v, dout, qg, kg, vg
+        torch.cuda.empty_cache()
+
+
 def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
     """Flash attention forward/backward and the blockwise quantizers on
     the card against their plain versions, and their timings at the
@@ -806,15 +1085,19 @@ def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
 
     log("train_kernel", f"flash_attention bf16 tile plan (the kernels' own "
                         f"Mask functions, run on the host) against the "
-                        f"element mask: {check_tile_plan(fa)} (shape, head "
-                        f"dim) plans, ranges tight, full tiles visible whole")
-    fwd_err = bwd_err = 0.0
+                        f"element mask: {check_tile_plan(fa)} (shape, (d, "
+                        f"dv)) plans, ranges tight, full tiles visible whole")
+    fwd_err = bwd_err = shape_rel = 0.0
+    shape_cases = [case for d, dv in fa.SHAPES for case in (
+        (2, 4, 2, 200, 200, d, True, 0, 0, dv),
+        (1, 2, 2, 130, 130, d, False, 0, 0, dv))]
     for dt in (torch.float32, torch.bfloat16):
-        for case in ATT_CASES:
-            B, Hq, Hkv, T, S, d, causal, window, off = case
+        for case in ATT_CASES + shape_cases:
+            B, Hq, Hkv, T, S, d, causal, window, off = case[:9]
+            dv = case[9] if len(case) > 9 else d
             q, k, v = (rnd((B, Hq, T, d), dt, True), rnd((B, Hkv, S, d), dt, True),
-                       rnd((B, Hkv, S, d), dt, True))
-            dout = rnd((B, Hq, T, d), dt)
+                       rnd((B, Hkv, S, dv), dt, True))
+            dout = rnd((B, Hq, T, dv), dt)
             got = fa.flash_attention(q, k, v, causal, window, off)
             want = fa.flash_attention_plain(q, k, v, causal, window, off)
             err = float((got.detach().float() - want.detach().float()).abs().max())
@@ -832,6 +1115,15 @@ def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
                     raise AssertionError(f"flash backward d{name} {case} "
                                          f"{dt}: max err {e} > {tol}")
                 bwd_err = max(bwd_err, e)
+            if len(case) > 9:  # every 64-row block against its own norm
+                for name, a, b in zip(("out", "dq", "dk", "dv"),
+                                      (got, *grads), (want, *refs)):
+                    e = block_rel_err(a, b)
+                    if not e <= ATT_BLOCK_REL:
+                        raise AssertionError(f"flash {name} {case} {dt}: a "
+                                             f"64-row block is {e} of its "
+                                             f"norm off plain")
+                    shape_rel = max(shape_rel, e)
             q0, k0, v0 = q.detach(), k.detach(), v.detach()
             out, lse = fa.flash_attention_fwd(q0, k0, v0, causal, window, off)
             one = fa.flash_attention_bwd(q0, k0, v0, out, dout, lse, causal,
@@ -842,11 +1134,15 @@ def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
                 raise AssertionError(f"flash backward {case} {dt}: two "
                                      f"launches differ")
     torch.cuda.synchronize()
-    log("train_kernel", f"flash_attention over {len(ATT_CASES)} cases x "
-                        f"f32/bf16: forward within atol 3e-5/3e-2 of plain "
-                        f"(max {fwd_err:.3e}); dq/dk/dv within 1e-4 (f32) and "
-                        f"2e-2 x max|ref| (bf16) of autograd through plain "
-                        f"(max {bwd_err:.3e}); two backward launches bitwise "
+    log("train_kernel", f"flash_attention over {len(ATT_CASES)} cases and "
+                        f"{len(shape_cases)} at every (d, dv) of "
+                        f"{list(fa.SHAPES)} x f32/bf16: forward within atol "
+                        f"3e-5/3e-2 of plain (max {fwd_err:.3e}); dq/dk/dv "
+                        f"within 1e-4 (f32) and 2e-2 x max|ref| (bf16) of "
+                        f"autograd through plain (max {bwd_err:.3e}); at "
+                        f"every (d, dv) every 64-row block of out, dq, dk, "
+                        f"dv within {ATT_BLOCK_REL} of its norm (max "
+                        f"{shape_rel:.3e}); two backward launches bitwise "
                         f"equal")
 
     for dt in (torch.float32, torch.bfloat16):
@@ -973,16 +1269,7 @@ def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
             ("plain2", lambda: fa.flash_attention_plain(qg, kg, vg, True))):
         b_times[name] = time_bwd_ms(fwd, (qg, kg, vg), dout, 10)
     lib_fwd = lambda: sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)  # noqa: E731
-    lib_note = "deterministic mode on"
-    try:
-        b_times["library"] = time_bwd_ms(lib_fwd, (qg, kg, vg), dout, 10)
-    except RuntimeError as e:  # deterministic mode refuses SDPA's backward
-        lib_note = f"deterministic mode off for this call only ({e})"[:160]
-        torch.use_deterministic_algorithms(False)
-        try:
-            b_times["library"] = time_bwd_ms(lib_fwd, (qg, kg, vg), dout, 10)
-        finally:
-            torch.use_deterministic_algorithms(True)
+    b_times["library"], lib_note = sdpa_bwd_ms(lib_fwd, (qg, kg, vg), dout, 10)
     pairs = T * (T + 1) // 2  # visible (q, k) pairs per head, causal
     io = 2 * (2 * B * Hq * T * d + 2 * B * Hkv * T * d)  # q, out; k, v (bf16)
     f_bound, f_by = bound(io + 4 * B * Hq * T, 4.0 * B * Hq * pairs * d,
@@ -1030,6 +1317,7 @@ def phase_train_kernel(fa, qz, seed: int, dev) -> list[dict]:
                         f"{f_warm:.6f} / {f_cold:.6f}; backward kernels "
                         f"alone {b_warm:.6f} / {b_cold:.6f}")
     del f_sets, b_sets
+    flash_wide(fa, rnd)
 
     # which kernels each dtype's route launched (device kernel names of
     # forward and backward calls)
@@ -1753,28 +2041,57 @@ def phase_train_ssm(gs) -> dict:
     return launches
 
 
-def ssm_first_step(gs) -> None:
+def ssm_first_step(gs, dev) -> None:
     """``python3 chip_smoke.py --ssm-first-step``: the ``train_ssm``
-    phase's first step (ce at the initial parameters) with the mLSTM's scan
-    routed three ways: the bf16 tensor-core kernels (as the phase runs it),
-    the plain version on the same bf16 inputs, and the f32 SIMT kernels on
-    them cast up (out cast back to bf16: the arithmetic of a scan that reads
-    bf16 and computes in f32).  Each scan call's output is also held
-    against the plain version's: max and mean |difference|."""
+    phase's first step (loss, ce and gradients at the initial parameters,
+    the step's 2 x 4 x 2048 tokens as its 2 ranks split them, averaged)
+    with the mLSTM's scan routed three ways: the bf16 tensor-core kernels
+    (as the phase runs it), the plain version on the same bf16 inputs, and
+    the f32 SIMT kernels on them cast up (out cast back to bf16: the
+    arithmetic of a scan that reads bf16 and computes in f32); and, as the
+    witness of how far the step itself carries a rounding, the plain
+    version with one element of each call's output moved by one ulp (the
+    gradient passed through unchanged).  Each scan call's output is also
+    held against the plain version's: max and mean |difference|.  Then
+    each block's gradient norm under each route, and each route's
+    gradients against the plain route's, block by block."""
+    import re
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
     from repro_torch.kernels import ops
-    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.training.train_step import _grad_accum
 
     def simt(q, k, v, log_f, i_gate, normalize=True, chunk=128):
         out, state = gs.gla_scan(q.float(), k.float(), v.float(), log_f,
                                  i_gate, normalize, chunk)
         return out.to(q.dtype), state
 
+    def planted(q, k, v, log_f, i_gate, normalize=True, chunk=128):
+        out, state = gs.gla_scan_plain(q, k, v, log_f, i_gate, normalize,
+                                       chunk)
+        with torch.no_grad():
+            moved = out.detach().contiguous().clone()
+            bits = {2: torch.int16, 4: torch.int32}[moved.element_size()]
+            flat = moved.view(bits).view(-1)
+            flat[flat.numel() // 3] += 1  # the next value away from zero
+        return out + (moved - out.detach()), state
+
+    def block(name):
+        m = re.match(r"(layers\.\d+\.(?:mlstm\.\d+|slstm))", name)
+        return m[1] if m else name.split(".")[0]
+
+    cfg = configs.get(SSM_ARCH)
+    batch = {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in
+             synthetic_batch(DataConfig(), cfg, 8, 2048, 0).items()}
     kernel = ops.gla_scan
-    args = SSM_ARGS[:SSM_ARGS.index("--steps")] + ["--steps", "1"]
+    grads = {}
     try:
         for name, fn in (("bf16 kernels", kernel),
                          ("plain (bf16 in)", gs.gla_scan_plain),
-                         ("f32 SIMT kernels", simt)):
+                         ("f32 SIMT kernels", simt),
+                         ("plain, one ulp planted a call", planted)):
             diffs = []
 
             def scan(*a, fn=fn, diffs=diffs, **kw):
@@ -1786,17 +2103,40 @@ def ssm_first_step(gs) -> None:
                 return out, state
 
             ops.gla_scan = scan
-            hist = train.main(args)
+            model = lm.init_params(cfg, seed=0, device=dev)
+            loss, ce, g = _grad_accum(model, cfg, None, batch, SSM_P)
+            del model
+            sq = {}
+            for n, t in g.items():
+                sq[block(n)] = sq.get(block(n), 0.0) + float(
+                    t.float().pow(2).sum())
+            grads[name] = {n: t.float() for n, t in g.items()}
+            del g
             log("ssm_first_step", f"scan through the {name}: ce at step 1 "
-                                  f"{hist[0]['ce']:.6f}, loss "
-                                  f"{hist[0]['loss']:.6f}; {len(diffs)} scan "
-                                  f"calls, out vs plain max |diff| "
-                                  f"{max(d[0] for d in diffs):.6e}, mean "
-                                  f"|diff| up to "
-                                  f"{max(d[1] for d in diffs):.6e}")
+                                  f"{float(ce):.6f}, loss {float(loss):.6f}, "
+                                  f"gradient norm {sum(sq.values()) ** 0.5:.4f}"
+                                  f"; {len(diffs)} scan calls, out vs plain "
+                                  f"max |diff| {max(d[0] for d in diffs):.6e}, "
+                                  f"mean |diff| up to "
+                                  f"{max(d[1] for d in diffs):.6e}; block "
+                                  f"gradient norms: " + ", ".join(
+                                      f"{k} {v ** 0.5:.4f}"
+                                      for k, v in sq.items()))
             torch.cuda.empty_cache()
     finally:
         ops.gla_scan = kernel
+    ref = grads["plain (bf16 in)"]
+    for name in ("bf16 kernels", "f32 SIMT kernels",
+                 "plain, one ulp planted a call"):
+        num, den = {}, {}
+        for n, t in grads[name].items():
+            k = block(n)
+            num[k] = num.get(k, 0.0) + float((t - ref[n]).pow(2).sum())
+            den[k] = den.get(k, 0.0) + float(ref[n].pow(2).sum())
+        log("ssm_first_step", f"{name} vs plain, ||g - g_plain|| / "
+                              f"||g_plain|| by block: " + ", ".join(
+                                  f"{k} {(num[k] / den[k]) ** 0.5:.3e}"
+                                  for k in num))
 
 
 def ssm_step_breakdown(seed: int, dev) -> None:
@@ -2070,7 +2410,7 @@ def main(argv=None) -> int:
                 log("build", f"{name}: {kernel}: {line.strip()}")
 
     if args.ssm_first_step:
-        ssm_first_step(gs)
+        ssm_first_step(gs, dev)
         return 0
 
     # 3. kernel vs plain, invariances, timings (serving, then training)

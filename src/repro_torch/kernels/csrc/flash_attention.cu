@@ -1,8 +1,12 @@
 // GQA flash attention for Hopper (sm_90a): forward and backward.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention, body _flash_kernel).  The forward computes the same
-// function:
+// (flash_attention, body _flash_kernel).  q and k are d wide, v and the
+// output dv wide, for every (d, dv) pair of FA_SHAPES below: the widths
+// the model configs reach, (80, 80) for hubert-xlarge, (192, 128) for
+// deepseek-v2's MLA (qk_nope 128 + qk_rope 64 against v 128) and (48, 32)
+// for its reduced config among them.  sm_scale is d^-0.5.  The forward
+// computes the same function:
 //
 //   s_ij  = (q_i . k_j) * sm_scale                       f32
 //   mask  = k_j < S  [and k_j <= q_i (causal)]  [and k_j > q_i - window]
@@ -35,11 +39,18 @@
 //   producer's TMA loads fill a 2-stage ring of tiles in shared memory, an
 //   mbarrier pair per stage marking it full and empty, while the warpgroup
 //   runs wgmma.mma_async on the tiles that have arrived.  Tensors are seen
-//   by 3-D tensor maps [B*H, T|S, d], so a ragged tail zero-fills inside
-//   its own head.  Rows are swizzled over min(d, 64) columns (32 B at d 16,
-//   64 B at d 32, 128 B at d >= 64; d 128 is two 64-column halves), and
-//   the wgmma descriptors read the same layout K-major or, for the
-//   operand reduced along its rows (V, dO, Q, K), MN-major.
+//   by 3-D tensor maps [B*H, T|S, width], so a ragged tail zero-fills
+//   inside its own head.  A tile's width is cut into column panels
+//   (hopper.cuh, Panels): 64-column panels swizzled over 128 B, then at
+//   most one of 32 columns (64 B) and one of 16 (32 B), each panel its own
+//   TMA box through a map of its kind (d 80 = 64 + 16, 48 = 32 + 16, 192 =
+//   3 x 64; d 128 is two 64-column panels).  The wgmma descriptors read
+//   the panels K-major, each k16 step of a reduction along the width from
+//   the one panel that holds it, or, for the operand reduced along its rows
+//   (V, dO, Q, K), MN-major: a product whose output width spans panels of
+//   two swizzles is issued once per kind (one product over the run of
+//   64-column panels, one for a 32-column panel, one for a 16-column
+//   panel), each into its own columns of the f32 accumulator.
 //     - forward: one block per (b*hq, 64 q rows); Q loaded once, K and V
 //       tiles of 64 keys.  S = Q K^T with both operands in shared memory;
 //       the online softmax stays in registers, a row's max and sum meeting
@@ -52,7 +63,9 @@
 //     - backward, deterministic (no atomics; the same inputs give the
 //       same bits): the delta kernel; a dK/dV kernel, one block per
 //       (b*hkv, 64 keys), K and V resident, walking the group's q heads
-//       and each head's visible q tiles (64 rows, 32 at d 128) in order:
+//       and each head's visible q tiles (64 rows; 32 once d or dv passes
+//       64, where at (192, 128) the 64 x 192 and 64 x 128 f32 accumulators
+//       take 160 registers a thread) in order:
 //       S^T = K Q^T, P^T, dV += P^T dO, dP^T = V dO^T, dS^T, dK += dS^T Q;
 //       and a dQ kernel, one block per (b*hq, 64 q rows), Q and dO
 //       resident, walking its visible kv tiles of 64 keys in order: S, P,
@@ -75,7 +88,10 @@
 //       units).  No fast math: exp2f and logf are the accurate ones.
 // * f32: the SIMT kernels below (TF32 on the tensor cores could not meet
 //   f32's tolerance).  The forward gives each q row TPR adjacent threads
-//   (TPR = d / 64 for d = 128, else 1) holding q and acc in registers,
+//   (simt_tpr: the fewest, a power of two, that leave a thread at most 64
+//   columns of q and of acc in whole float4s: 1 up to d 64, 2 at d 80 and
+//   128, 4 at (192, 128); the backward's at most 32) holding q and acc in
+//   registers,
 //   with K and V tiles of 32 keys staged in shared memory; the backward
 //   has one launch per (b*hkv, kv-block), each thread owning one key and
 //   accumulating dk and dv over the group's q tiles in a fixed order, and
@@ -187,67 +203,75 @@ __device__ __forceinline__ float dot_smem(const float* x, const float* s) {
   return a;
 }
 
-// stage rows [r0, r0 + rows) of a [n, D] matrix into f32 shared memory,
+// stage rows [r0, r0 + rows) of a [n, W] matrix into f32 shared memory,
 // zero past n, optionally scaled
-template <typename T, int D>
-__device__ __forceinline__ void stage(float (*dst)[D], const T* src, int r0,
+template <typename T, int W>
+__device__ __forceinline__ void stage(float (*dst)[W], const T* src, int r0,
                                       int rows, int n, float scale) {
-  for (int e = threadIdx.x; e < rows * D; e += kThreads) {
-    const int j = e / D, c = e - j * D;
+  for (int e = threadIdx.x; e < rows * W; e += kThreads) {
+    const int j = e / W, c = e - j * W;
     const int r = r0 + j;
-    dst[j][c] = r < n ? to_f32(src[static_cast<int64_t>(r) * D + c]) * scale
+    dst[j][c] = r < n ? to_f32(src[static_cast<int64_t>(r) * W + c]) * scale
                       : 0.f;
   }
+}
+
+// Threads per q row (forward) or per key / q row (backward) of the SIMT
+// kernels: the fewest, a power of two, that leave each thread at most
+// `most` columns of q/k and of v, in slices of whole float4s
+__host__ __device__ constexpr int simt_tpr(int dk, int dv, int most) {
+  int t = 1;
+  while ((dk > dv ? dk : dv) > most * t || dk % (4 * t) || dv % (4 * t)) t *= 2;
+  return t;
 }
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q,   // [B, Hq, T, D]
-                 const T* __restrict__ k,   // [B, Hkv, S, D]
-                 const T* __restrict__ v,   // [B, Hkv, S, D]
-                 T* __restrict__ out,       // [B, Hq, T, D]
+flash_fwd_kernel(const T* __restrict__ q,   // [B, Hq, T, DK]
+                 const T* __restrict__ k,   // [B, Hkv, S, DK]
+                 const T* __restrict__ v,   // [B, Hkv, S, DV]
+                 T* __restrict__ out,       // [B, Hq, T, DV]
                  float* __restrict__ lse,   // [B, Hq, T]
                  int Hq, int Hkv, int Tq, Mask mask, float sm_scale) {
-  constexpr int DT = D < 64 ? D : 64;  // dims of a row each thread holds
-  constexpr int TPR = D / DT;          // threads per q row
-  constexpr int BQ = kThreads / TPR;   // q rows per block
-  __shared__ __align__(16) float k_s[kTile][D];
-  __shared__ __align__(16) float v_s[kTile][D];
+  constexpr int TPR = simt_tpr(DK, DV, 64);  // threads per q row
+  constexpr int DTK = DK / TPR, DTV = DV / TPR;  // columns each thread holds
+  constexpr int BQ = kThreads / TPR;             // q rows per block
+  __shared__ __align__(16) float k_s[kTile][DK];
+  __shared__ __align__(16) float v_s[kTile][DV];
 
   const int bh = blockIdx.y;
   const int b = bh / Hq, h = bh - b * Hq;
   const int bkv = b * Hkv + h / (Hq / Hkv);
   const int tid = threadIdx.x;
-  const int d0 = (tid % TPR) * DT;
+  const int dk0 = (tid % TPR) * DTK, dv0 = (tid % TPR) * DTV;
   const int row = blockIdx.x * BQ + tid / TPR;
   const bool row_ok = row < Tq;
   const int qpos = mask.q_offset + row;
 
-  float qr[DT], acc[DT];
-  const T* qrow = q + (static_cast<int64_t>(bh) * Tq + (row_ok ? row : 0)) * D + d0;
+  float qr[DTK], acc[DTV];
+  const T* qrow = q + (static_cast<int64_t>(bh) * Tq + (row_ok ? row : 0)) * DK + dk0;
 #pragma unroll
-  for (int i = 0; i < DT; ++i) {
-    qr[i] = row_ok ? to_f32(qrow[i]) * sm_scale : 0.f;
-    acc[i] = 0.f;
-  }
+  for (int i = 0; i < DTK; ++i) qr[i] = row_ok ? to_f32(qrow[i]) * sm_scale : 0.f;
+#pragma unroll
+  for (int i = 0; i < DTV; ++i) acc[i] = 0.f;
   float m = kNegInf, l = 0.f;
 
   const int q_first = mask.q_offset + blockIdx.x * BQ;
   const int q_last = mask.q_offset + min(Tq, (blockIdx.x + 1) * BQ) - 1;
   int lo, hi;
   mask.kv_tiles(q_first, q_last, kTile, &lo, &hi);
-  const T* kb = k + static_cast<int64_t>(bkv) * mask.S * D;
-  const T* vb = v + static_cast<int64_t>(bkv) * mask.S * D;
+  const T* kb = k + static_cast<int64_t>(bkv) * mask.S * DK;
+  const T* vb = v + static_cast<int64_t>(bkv) * mask.S * DV;
 
   for (int t = lo; t < hi; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the previous tile is consumed
-    stage<T, D>(k_s, kb, k0, kTile, mask.S, 1.f);
-    stage<T, D>(v_s, vb, k0, kTile, mask.S, 1.f);
+    stage<T, DK>(k_s, kb, k0, kTile, mask.S, 1.f);
+    stage<T, DV>(v_s, vb, k0, kTile, mask.S, 1.f);
     __syncthreads();
 
     float s[kTile];
@@ -255,7 +279,7 @@ flash_fwd_kernel(const T* __restrict__ q,   // [B, Hq, T, D]
     float m_cur = kNegInf;
 #pragma unroll
     for (int j = 0; j < kTile; ++j) {
-      const float a = row_sum<TPR>(dot_smem<DT>(qr, &k_s[j][d0]));
+      const float a = row_sum<TPR>(dot_smem<DTK>(qr, &k_s[j][dk0]));
       const bool ok = mask.visible(qpos, k0 + j);
       vis |= ok ? (1u << j) : 0u;
       s[j] = ok ? a : kNegInf;
@@ -265,14 +289,14 @@ flash_fwd_kernel(const T* __restrict__ q,   // [B, Hq, T, D]
     const float alpha = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int i = 0; i < DT; ++i) acc[i] *= alpha;
+    for (int i = 0; i < DTV; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < kTile; ++j) {
       const float p = (vis >> j) & 1u ? expf(s[j] - m_new) : 0.f;
       psum += p;
-      const float* vr = &v_s[j][d0];
+      const float* vr = &v_s[j][dv0];
 #pragma unroll
-      for (int i = 0; i < DT; i += 4) {
+      for (int i = 0; i < DTV; i += 4) {
         const float4 w = *reinterpret_cast<const float4*>(vr + i);
         acc[i] += p * w.x;
         acc[i + 1] += p * w.y;
@@ -286,10 +310,10 @@ flash_fwd_kernel(const T* __restrict__ q,   // [B, Hq, T, D]
 
   if (row_ok) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = out + (static_cast<int64_t>(bh) * Tq + row) * D + d0;
+    T* orow = out + (static_cast<int64_t>(bh) * Tq + row) * DV + dv0;
 #pragma unroll
-    for (int i = 0; i < DT; ++i) orow[i] = from_f32<T>(acc[i] / denom);
-    if (d0 == 0)
+    for (int i = 0; i < DTV; ++i) orow[i] = from_f32<T>(acc[i] / denom);
+    if (tid % TPR == 0)
       lse[static_cast<int64_t>(bh) * Tq + row] = l > 0.f ? m + logf(l) : 0.f;
   }
 }
@@ -298,8 +322,8 @@ flash_fwd_kernel(const T* __restrict__ q,   // [B, Hq, T, D]
 // backward
 // ---------------------------------------------------------------------------
 
-// D_i = sum_c dout_ic * out_ic, one warp per row
-template <typename T, int D>
+// D_i = sum_c dout_ic * out_ic, one warp per row of DV columns
+template <typename T, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                        float* __restrict__ delta, int64_t rows) {
@@ -307,16 +331,16 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                     threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (r >= rows) return;
-  const T* o = out + r * D;
-  const T* g = dout + r * D;
+  const T* o = out + r * DV;
+  const T* g = dout + r * DV;
   float a = 0.f;
-  for (int c = lane; c < D; c += 32) a += to_f32(o[c]) * to_f32(g[c]);
+  for (int c = lane; c < DV; c += 32) a += to_f32(o[c]) * to_f32(g[c]);
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) a += __shfl_xor_sync(0xffffffffu, a, w);
   if (lane == 0) delta[r] = a;
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
@@ -324,12 +348,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int Hq, int Hkv, int Tq, Mask mask,
                       float sm_scale) {
-  constexpr int DT = D < 32 ? D : 32;
-  constexpr int TPR = D / DT;
+  constexpr int TPR = simt_tpr(DK, DV, 32);  // threads per key
+  constexpr int DTK = DK / TPR, DTV = DV / TPR;
   constexpr int BKV = kThreads / TPR;  // keys per block
   constexpr int BQ = 32;               // q rows per shared-memory tile
-  __shared__ __align__(16) float q_s[BQ][D];
-  __shared__ __align__(16) float g_s[BQ][D];
+  __shared__ __align__(16) float q_s[BQ][DK];
+  __shared__ __align__(16) float g_s[BQ][DV];
   __shared__ float lse_s[BQ];
   __shared__ float del_s[BQ];
 
@@ -337,18 +361,21 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bkv / Hkv, hk = bkv - b * Hkv;
   const int group = Hq / Hkv;
   const int tid = threadIdx.x;
-  const int d0 = (tid % TPR) * DT;
+  const int dk0 = (tid % TPR) * DTK, dv0 = (tid % TPR) * DTV;
   const int key = blockIdx.x * BKV + tid / TPR;
   const bool key_ok = key < mask.S;
 
-  float kr[DT], vr[DT], dkr[DT], dvr[DT];
-  const int64_t koff =
-      (static_cast<int64_t>(bkv) * mask.S + (key_ok ? key : 0)) * D + d0;
+  float kr[DTK], vr[DTV], dkr[DTK], dvr[DTV];
+  const int64_t krow = static_cast<int64_t>(bkv) * mask.S + (key_ok ? key : 0);
+  const int64_t koff = krow * DK + dk0, voff = krow * DV + dv0;
 #pragma unroll
-  for (int i = 0; i < DT; ++i) {
+  for (int i = 0; i < DTK; ++i) {
     kr[i] = key_ok ? to_f32(k[koff + i]) : 0.f;
-    vr[i] = key_ok ? to_f32(v[koff + i]) : 0.f;
     dkr[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DTV; ++i) {
+    vr[i] = key_ok ? to_f32(v[voff + i]) : 0.f;
     dvr[i] = 0.f;
   }
   const int k_first = blockIdx.x * BKV;
@@ -358,13 +385,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int g = 0; g < group; ++g) {
     const int64_t bh = static_cast<int64_t>(b) * Hq + hk * group + g;
-    const T* qh = q + bh * Tq * D;
-    const T* gh = dout + bh * Tq * D;
+    const T* qh = q + bh * Tq * DK;
+    const T* gh = dout + bh * Tq * DV;
     for (int t0 = i_lo; t0 < i_hi; t0 += BQ) {
       const int rows = min(BQ, i_hi - t0);
       __syncthreads();
-      stage<T, D>(q_s, qh, t0, BQ, Tq, sm_scale);
-      stage<T, D>(g_s, gh, t0, BQ, Tq, 1.f);
+      stage<T, DK>(q_s, qh, t0, BQ, Tq, sm_scale);
+      stage<T, DV>(g_s, gh, t0, BQ, Tq, 1.f);
       if (tid < BQ) {
         const bool ok = t0 + tid < Tq;
         lse_s[tid] = ok ? lse[bh * Tq + t0 + tid] : 0.f;
@@ -372,21 +399,24 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
       for (int r = 0; r < rows; ++r) {  // uniform over the block
-        const float s = row_sum<TPR>(dot_smem<DT>(kr, &q_s[r][d0]));
-        const float dp = row_sum<TPR>(dot_smem<DT>(vr, &g_s[r][d0]));
+        const float s = row_sum<TPR>(dot_smem<DTK>(kr, &q_s[r][dk0]));
+        const float dp = row_sum<TPR>(dot_smem<DTV>(vr, &g_s[r][dv0]));
         const bool ok = key_ok && mask.visible(mask.q_offset + t0 + r, key);
         const float p = ok ? expf(s - lse_s[r]) : 0.f;
         const float ds = p * (dp - del_s[r]);
-        const float* qs = &q_s[r][d0];
-        const float* gs = &g_s[r][d0];
+        const float* qs = &q_s[r][dk0];
+        const float* gs = &g_s[r][dv0];
 #pragma unroll
-        for (int i = 0; i < DT; i += 4) {
+        for (int i = 0; i < DTV; i += 4) {
           const float4 a = *reinterpret_cast<const float4*>(gs + i);
-          const float4 c = *reinterpret_cast<const float4*>(qs + i);
           dvr[i] += p * a.x;
           dvr[i + 1] += p * a.y;
           dvr[i + 2] += p * a.z;
           dvr[i + 3] += p * a.w;
+        }
+#pragma unroll
+        for (int i = 0; i < DTK; i += 4) {
+          const float4 c = *reinterpret_cast<const float4*>(qs + i);
           dkr[i] += ds * c.x;
           dkr[i + 1] += ds * c.y;
           dkr[i + 2] += ds * c.z;
@@ -397,44 +427,44 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (key_ok) {
 #pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      dk[koff + i] = from_f32<T>(dkr[i]);
-      dv[koff + i] = from_f32<T>(dvr[i]);
-    }
+    for (int i = 0; i < DTK; ++i) dk[koff + i] = from_f32<T>(dkr[i]);
+#pragma unroll
+    for (int i = 0; i < DTV; ++i) dv[voff + i] = from_f32<T>(dvr[i]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int Hq, int Hkv, int Tq, Mask mask, float sm_scale) {
-  constexpr int DT = D < 32 ? D : 32;
-  constexpr int TPR = D / DT;
+  constexpr int TPR = simt_tpr(DK, DV, 32);  // threads per q row
+  constexpr int DTK = DK / TPR, DTV = DV / TPR;
   constexpr int BQ = kThreads / TPR;
-  __shared__ __align__(16) float k_s[kTile][D];
-  __shared__ __align__(16) float v_s[kTile][D];
+  __shared__ __align__(16) float k_s[kTile][DK];
+  __shared__ __align__(16) float v_s[kTile][DV];
 
   const int bh = blockIdx.y;
   const int b = bh / Hq, h = bh - b * Hq;
   const int bkv = b * Hkv + h / (Hq / Hkv);
   const int tid = threadIdx.x;
-  const int d0 = (tid % TPR) * DT;
+  const int dk0 = (tid % TPR) * DTK, dv0 = (tid % TPR) * DTV;
   const int row = blockIdx.x * BQ + tid / TPR;
   const bool row_ok = row < Tq;
   const int qpos = mask.q_offset + row;
 
-  const int64_t roff = (static_cast<int64_t>(bh) * Tq + (row_ok ? row : 0)) * D + d0;
-  float qr[DT], gr[DT], dqr[DT];
+  const int64_t ridx = static_cast<int64_t>(bh) * Tq + (row_ok ? row : 0);
+  const int64_t roff = ridx * DK + dk0, goff = ridx * DV + dv0;
+  float qr[DTK], gr[DTV], dqr[DTK];
 #pragma unroll
-  for (int i = 0; i < DT; ++i) {
+  for (int i = 0; i < DTK; ++i) {
     qr[i] = row_ok ? to_f32(q[roff + i]) * sm_scale : 0.f;
-    gr[i] = row_ok ? to_f32(dout[roff + i]) : 0.f;
     dqr[i] = 0.f;
   }
-  const int64_t ridx = static_cast<int64_t>(bh) * Tq + (row_ok ? row : 0);
+#pragma unroll
+  for (int i = 0; i < DTV; ++i) gr[i] = row_ok ? to_f32(dout[goff + i]) : 0.f;
   const float lse_r = row_ok ? lse[ridx] : 0.f;
   const float del_r = row_ok ? delta[ridx] : 0.f;
 
@@ -442,25 +472,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = mask.q_offset + min(Tq, (blockIdx.x + 1) * BQ) - 1;
   int lo, hi;
   mask.kv_tiles(q_first, q_last, kTile, &lo, &hi);
-  const T* kb = k + static_cast<int64_t>(bkv) * mask.S * D;
-  const T* vb = v + static_cast<int64_t>(bkv) * mask.S * D;
+  const T* kb = k + static_cast<int64_t>(bkv) * mask.S * DK;
+  const T* vb = v + static_cast<int64_t>(bkv) * mask.S * DV;
 
   for (int t = lo; t < hi; ++t) {
     const int k0 = t * kTile;
     __syncthreads();
-    stage<T, D>(k_s, kb, k0, kTile, mask.S, 1.f);
-    stage<T, D>(v_s, vb, k0, kTile, mask.S, 1.f);
+    stage<T, DK>(k_s, kb, k0, kTile, mask.S, 1.f);
+    stage<T, DV>(v_s, vb, k0, kTile, mask.S, 1.f);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kTile; ++j) {
-      const float s = row_sum<TPR>(dot_smem<DT>(qr, &k_s[j][d0]));
-      const float dp = row_sum<TPR>(dot_smem<DT>(gr, &v_s[j][d0]));
+      const float s = row_sum<TPR>(dot_smem<DTK>(qr, &k_s[j][dk0]));
+      const float dp = row_sum<TPR>(dot_smem<DTV>(gr, &v_s[j][dv0]));
       const bool ok = row_ok && mask.visible(qpos, k0 + j);
       const float p = ok ? expf(s - lse_r) : 0.f;
       const float ds = p * (dp - del_r);
-      const float* kr = &k_s[j][d0];
+      const float* kr = &k_s[j][dk0];
 #pragma unroll
-      for (int i = 0; i < DT; i += 4) {
+      for (int i = 0; i < DTK; i += 4) {
         const float4 w = *reinterpret_cast<const float4*>(kr + i);
         dqr[i] += ds * w.x;
         dqr[i + 1] += ds * w.y;
@@ -471,33 +501,33 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (row_ok) {
 #pragma unroll
-    for (int i = 0; i < DT; ++i) dq[roff + i] = from_f32<T>(dqr[i] * sm_scale);
+    for (int i = 0; i < DTK; ++i) dq[roff + i] = from_f32<T>(dqr[i] * sm_scale);
   }
 }
 
 inline int cdiv(int64_t a, int64_t b) { return static_cast<int>((a + b - 1) / b); }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 float* lse, int B, int Hq, int Hkv, int Tq, const Mask& mask,
                 float sm_scale, cudaStream_t stream) {
-  constexpr int TPR = D < 64 ? 1 : D / 64;
+  constexpr int TPR = simt_tpr(DK, DV, 64);
   const dim3 grid(cdiv(Tq, kThreads / TPR), B * Hq);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<T, DK, DV><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, Hq, Hkv, Tq, mask,
       sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, float* delta, void* dq,
                 void* dk, void* dv, int B, int Hq, int Hkv, int Tq,
                 const Mask& mask, float sm_scale, cudaStream_t stream) {
-  constexpr int TPR = D < 32 ? 1 : D / 32;
+  constexpr int TPR = simt_tpr(DK, DV, 32);
   const int64_t rows = static_cast<int64_t>(B) * Hq * Tq;
-  flash_bwd_delta_kernel<T, D><<<cdiv(rows, kThreads / 32), kThreads, 0,
+  flash_bwd_delta_kernel<T, DV><<<cdiv(rows, kThreads / 32), kThreads, 0,
                                  stream>>>(static_cast<const T*>(out),
                                            static_cast<const T*>(dout), delta,
                                            rows);
@@ -505,7 +535,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
   if (err != cudaSuccess) return err;
   if (mask.S > 0) {
     const dim3 gkv(cdiv(mask.S, kThreads / TPR), B * Hkv);
-    flash_bwd_dkdv_kernel<T, D><<<gkv, kThreads, 0, stream>>>(
+    flash_bwd_dkdv_kernel<T, DK, DV><<<gkv, kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
         static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv, Tq, mask, sm_scale);
@@ -513,7 +543,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
     if (err != cudaSuccess) return err;
   }
   const dim3 gq(cdiv(Tq, kThreads / TPR), B * Hq);
-  flash_bwd_dq_kernel<T, D><<<gq, kThreads, 0, stream>>>(
+  flash_bwd_dq_kernel<T, DK, DV><<<gq, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), Hq, Hkv, Tq, mask, sm_scale);
@@ -528,32 +558,33 @@ namespace tc {
 
 // ------------------------------- forward ----------------------------------
 
-template <int D>
+template <int DK, int DV>
 struct Fwd {
   static constexpr int BM = 64;                 // q rows per block
   // keys per kv tile: at 64 a thread holds 32 scores, the kernel ~100
   // registers, and three blocks share an SM; at 128, two
   static constexpr int BK = 64;
   static constexpr int STAGES = 2;  // depth of the TMA ring
-  static constexpr int Q_BYTES = BM * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int Q_BYTES = BM * DK * 2;
+  static constexpr int K_BYTES = BK * DK * 2;
+  static constexpr int KV_BYTES = K_BYTES + BK * DV * 2;  // a stage: K, V
   static constexpr int SMEM =
-      1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (2 * STAGES + 1);
+      1024 + Q_BYTES + STAGES * KV_BYTES + 8 * (2 * STAGES + 1);
 };
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kBlock)
-flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
-                    const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v,
+flash_fwd_tc_kernel(const __grid_constant__ TMaps<DK> tm_q,
+                    const __grid_constant__ TMaps<DK> tm_k,
+                    const __grid_constant__ TMaps<DV> tm_v,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                     int Hq, int Hkv, int Tq, Mask mask, float sm_scale) {
-  using C = Fwd<D>;
+  using C = Fwd<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = align1024(smem_raw);
-  uint8_t* kv_s = q_s + C::Q_BYTES;  // stage s: K at 2s, V at 2s + 1
+  uint8_t* kv_s = q_s + C::Q_BYTES;  // stage s: K, then V
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(kv_s + C::STAGES * 2 * C::KV_BYTES);
+      reinterpret_cast<uint64_t*>(kv_s + C::STAGES * C::KV_BYTES);
   uint64_t* full = bars;
   uint64_t* empty = bars + C::STAGES;
   uint64_t* q_bar = bars + 2 * C::STAGES;
@@ -572,14 +603,14 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x >= kConsumers) {  // the producer warp: one lane issues TMA
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(q_bar, C::Q_BYTES);
-      load_tile<D>(q_s, &tm_q, q_bar, q0, bh, C::BM);
+      load_tile<DK>(q_s, tm_q, q_bar, q0, bh, C::BM);
       for (int t = lo; t < hi; ++t) {
         const int it = t - lo, s = it % C::STAGES;
         if (it >= C::STAGES) mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
-        uint8_t* k_s = kv_s + 2 * s * C::KV_BYTES;
-        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
-        load_tile<D>(k_s, &tm_k, &full[s], t * C::BK, bkv, C::BK);
-        load_tile<D>(k_s + C::KV_BYTES, &tm_v, &full[s], t * C::BK, bkv, C::BK);
+        uint8_t* k_s = kv_s + s * C::KV_BYTES;
+        mbar_expect_tx(&full[s], C::KV_BYTES);
+        load_tile<DK>(k_s, tm_k, &full[s], t * C::BK, bkv, C::BK);
+        load_tile<DV>(k_s + C::K_BYTES, tm_v, &full[s], t * C::BK, bkv, C::BK);
       }
     }
     return;
@@ -588,25 +619,25 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);  // rows r0, r0 + 8
   const float sl2 = sm_scale * kLog2e;  // scores in log2 units: exp2f
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const uint32_t q_addr = smem_u32(q_s);
   mbar_wait(q_bar, 0);
 
   for (int t = lo; t < hi; ++t) {
     const int it = t - lo, s = it % C::STAGES;
-    const uint32_t k_addr = smem_u32(kv_s + 2 * s * C::KV_BYTES);
-    const uint32_t v_addr = k_addr + C::KV_BYTES;
+    const uint32_t k_addr = smem_u32(kv_s + s * C::KV_BYTES);
+    const uint32_t v_addr = k_addr + C::K_BYTES;
     mbar_wait(&full[s], (it / C::STAGES) & 1);
 
     float x[C::BK / 2];  // S = Q . K^T, f32
     wg_fence();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      Wgmma<C::BK>::ss(x, kmajor<D, C::BM>(q_addr, k),
-                       kmajor<D, C::BK>(k_addr, k), k > 0);
+    for (int k = 0; k < DK / 16; ++k)
+      Wgmma<C::BK>::ss(x, kmajor<DK, C::BM>(q_addr, k),
+                       kmajor<DK, C::BK>(k_addr, k), k > 0);
     wg_commit();
     wg_wait();
     fence_regs(x);
@@ -639,11 +670,11 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint32_t p[C::BK / 16][4];  // p rounded to bf16: the A operand of P . V
     to_operand<C::BK>(x, p);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[frag_row(i)];
+    for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[frag_row(i)];
     wg_fence();
 #pragma unroll
     for (int k = 0; k < C::BK / 16; ++k)
-      Wgmma<D>::rs(o, p[k], mnmajor<D, C::BK>(v_addr, k), 1);
+      rs_panels<DV, C::BK>(o, p[k], v_addr, k);
     wg_commit();
     wg_wait();
     fence_regs(o);
@@ -656,9 +687,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float lr = quad_sum(l[r]);
     if (row >= Tq) continue;
     const float den = fmaxf(lr, 1e-30f);
-    __nv_bfloat16* orow = out + (static_cast<int64_t>(bh) * Tq + row) * D;
+    __nv_bfloat16* orow = out + (static_cast<int64_t>(bh) * Tq + row) * DV;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int col = 8 * j + (lane & 3) * 2;
       *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
           o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
@@ -673,34 +704,36 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // dq: one block per (b*hq, 64 q rows); Q and dO stay in shared memory, K and
 // V tiles come through the ring in order
-template <int D>
+template <int DK, int DV>
 struct Dq {
   static constexpr int BM = 64;
   static constexpr int BK = 64;
   static constexpr int STAGES = 2;
-  static constexpr int Q_BYTES = BM * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;
-  static constexpr int SMEM =
-      1024 + 2 * Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (2 * STAGES + 1);
+  static constexpr int Q_BYTES = BM * DK * 2;
+  static constexpr int DO_BYTES = BM * DV * 2;
+  static constexpr int K_BYTES = BK * DK * 2;
+  static constexpr int KV_BYTES = K_BYTES + BK * DV * 2;  // a stage: K, V
+  static constexpr int SMEM = 1024 + Q_BYTES + DO_BYTES + STAGES * KV_BYTES +
+                              8 * (2 * STAGES + 1);
 };
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kBlock)
-flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
-                       const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v,
-                       const __grid_constant__ CUtensorMap tm_do,
+flash_bwd_dq_tc_kernel(const __grid_constant__ TMaps<DK> tm_q,
+                       const __grid_constant__ TMaps<DK> tm_k,
+                       const __grid_constant__ TMaps<DV> tm_v,
+                       const __grid_constant__ TMaps<DV> tm_do,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        __nv_bfloat16* __restrict__ dq, int Hq, int Hkv, int Tq,
                        Mask mask, float sm_scale) {
-  using C = Dq<D>;
+  using C = Dq<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = align1024(smem_raw);
   uint8_t* do_s = q_s + C::Q_BYTES;
-  uint8_t* kv_s = do_s + C::Q_BYTES;
+  uint8_t* kv_s = do_s + C::DO_BYTES;
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(kv_s + C::STAGES * 2 * C::KV_BYTES);
+      reinterpret_cast<uint64_t*>(kv_s + C::STAGES * C::KV_BYTES);
   uint64_t* full = bars;
   uint64_t* empty = bars + C::STAGES;
   uint64_t* q_bar = bars + 2 * C::STAGES;
@@ -718,16 +751,16 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x >= kConsumers) {
     if (threadIdx.x == kConsumers) {
-      mbar_expect_tx(q_bar, 2 * C::Q_BYTES);
-      load_tile<D>(q_s, &tm_q, q_bar, q0, bh, C::BM);
-      load_tile<D>(do_s, &tm_do, q_bar, q0, bh, C::BM);
+      mbar_expect_tx(q_bar, C::Q_BYTES + C::DO_BYTES);
+      load_tile<DK>(q_s, tm_q, q_bar, q0, bh, C::BM);
+      load_tile<DV>(do_s, tm_do, q_bar, q0, bh, C::BM);
       for (int t = lo; t < hi; ++t) {
         const int it = t - lo, s = it % C::STAGES;
         if (it >= C::STAGES) mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
-        uint8_t* k_s = kv_s + 2 * s * C::KV_BYTES;
-        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
-        load_tile<D>(k_s, &tm_k, &full[s], t * C::BK, bkv, C::BK);
-        load_tile<D>(k_s + C::KV_BYTES, &tm_v, &full[s], t * C::BK, bkv, C::BK);
+        uint8_t* k_s = kv_s + s * C::KV_BYTES;
+        mbar_expect_tx(&full[s], C::KV_BYTES);
+        load_tile<DK>(k_s, tm_k, &full[s], t * C::BK, bkv, C::BK);
+        load_tile<DV>(k_s + C::K_BYTES, tm_v, &full[s], t * C::BK, bkv, C::BK);
       }
     }
     return;
@@ -744,28 +777,28 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     lse2[r] = row < Tq ? lse[ri] * kLog2e : 0.f;
     dl[r] = row < Tq ? delta[ri] : 0.f;
   }
-  float acc[D / 2];
+  float acc[DK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) acc[i] = 0.f;
   const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s);
   mbar_wait(q_bar, 0);
 
   for (int t = lo; t < hi; ++t) {
     const int it = t - lo, s = it % C::STAGES;
-    const uint32_t k_addr = smem_u32(kv_s + 2 * s * C::KV_BYTES);
-    const uint32_t v_addr = k_addr + C::KV_BYTES;
+    const uint32_t k_addr = smem_u32(kv_s + s * C::KV_BYTES);
+    const uint32_t v_addr = k_addr + C::K_BYTES;
     mbar_wait(&full[s], (it / C::STAGES) & 1);
 
     float x[C::BK / 2], dp[C::BK / 2];  // S = Q . K^T, dP = dO . V^T
     wg_fence();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      Wgmma<C::BK>::ss(x, kmajor<D, C::BM>(q_addr, k),
-                       kmajor<D, C::BK>(k_addr, k), k > 0);
+    for (int k = 0; k < DK / 16; ++k)
+      Wgmma<C::BK>::ss(x, kmajor<DK, C::BM>(q_addr, k),
+                       kmajor<DK, C::BK>(k_addr, k), k > 0);
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      Wgmma<C::BK>::ss(dp, kmajor<D, C::BM>(do_addr, k),
-                       kmajor<D, C::BK>(v_addr, k), k > 0);
+    for (int k = 0; k < DV / 16; ++k)
+      Wgmma<C::BK>::ss(dp, kmajor<DV, C::BM>(do_addr, k),
+                       kmajor<DV, C::BK>(v_addr, k), k > 0);
     wg_commit();
     wg_wait();
     fence_regs(x);
@@ -787,7 +820,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg_fence();
 #pragma unroll
     for (int k = 0; k < C::BK / 16; ++k)
-      Wgmma<D>::rs(acc, ds[k], mnmajor<D, C::BK>(k_addr, k), 1);
+      rs_panels<DK, C::BK>(acc, ds[k], k_addr, k);
     wg_commit();
     wg_wait();
     fence_regs(acc);
@@ -798,9 +831,9 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + r0 + 8 * r;
     if (row >= Tq) continue;
-    __nv_bfloat16* g = dq + (static_cast<int64_t>(bh) * Tq + row) * D;
+    __nv_bfloat16* g = dq + (static_cast<int64_t>(bh) * Tq + row) * DK;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DK / 8; ++j) {
       const int col = 8 * j + (lane & 3) * 2;
       *reinterpret_cast<__nv_bfloat162*>(g + col) = __floats2bfloat162_rn(
           acc[4 * j + 2 * r] * sm_scale, acc[4 * j + 2 * r + 1] * sm_scale);
@@ -811,36 +844,42 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 // dk, dv: one block per (b*hkv, 64 keys); K and V stay in shared memory, the
 // group's q heads and each head's visible q tiles come through the ring in
 // order (Q, dO by TMA; lse, D by the producer warp's lanes)
-template <int D>
+template <int DK, int DV>
 struct Dkv {
-  static constexpr int BN = 64;                 // keys per block
-  static constexpr int BQ = D <= 64 ? 64 : 32;  // q rows per tile
+  static constexpr int BN = 64;  // keys per block
+  // q rows per tile: 64 up to 64 columns; 32 beyond, where the dK and dV
+  // accumulators (64 x DK and 64 x DV f32 in one warpgroup) leave room for
+  // no more than a 64 x 32 score tile and its dP
+  static constexpr int BQ = DK <= 64 && DV <= 64 ? 64 : 32;
   static constexpr int STAGES = 2;
-  static constexpr int KV_BYTES = BN * D * 2;
-  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int K_BYTES = BN * DK * 2;
+  static constexpr int V_BYTES = BN * DV * 2;
+  static constexpr int Q_BYTES = BQ * DK * 2;
+  static constexpr int DO_BYTES = BQ * DV * 2;
   // Q, dO, then lse and D; rounded up so that every stage's tiles start on
   // a 1024-byte boundary, where the swizzle pattern starts
-  static constexpr int STAGE = (2 * Q_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int STAGE =
+      (Q_BYTES + DO_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
   static constexpr int SMEM =
-      1024 + 2 * KV_BYTES + STAGES * STAGE + 8 * (2 * STAGES + 1);
+      1024 + K_BYTES + V_BYTES + STAGES * STAGE + 8 * (2 * STAGES + 1);
 };
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kBlock)
-flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
-                         const __grid_constant__ CUtensorMap tm_k,
-                         const __grid_constant__ CUtensorMap tm_v,
-                         const __grid_constant__ CUtensorMap tm_do,
+flash_bwd_dkdv_tc_kernel(const __grid_constant__ TMaps<DK> tm_q,
+                         const __grid_constant__ TMaps<DK> tm_k,
+                         const __grid_constant__ TMaps<DV> tm_v,
+                         const __grid_constant__ TMaps<DV> tm_do,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int Hq, int Hkv,
                          int Tq, Mask mask, float sm_scale) {
-  using C = Dkv<D>;
+  using C = Dkv<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* k_s = align1024(smem_raw);
-  uint8_t* v_s = k_s + C::KV_BYTES;
-  uint8_t* st_s = v_s + C::KV_BYTES;  // stage s: Q, dO, lse2[BQ], D[BQ]
+  uint8_t* v_s = k_s + C::K_BYTES;
+  uint8_t* st_s = v_s + C::V_BYTES;  // stage s: Q, dO, lse2[BQ], D[BQ]
   uint64_t* bars = reinterpret_cast<uint64_t*>(st_s + C::STAGES * C::STAGE);
   uint64_t* full = bars;
   uint64_t* empty = bars + C::STAGES;
@@ -859,9 +898,9 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x >= kConsumers) {  // the producer warp, all 32 lanes
     const int lane = threadIdx.x - kConsumers;
     if (lane == 0) {
-      mbar_expect_tx(kv_bar, 2 * C::KV_BYTES);
-      load_tile<D>(k_s, &tm_k, kv_bar, k0, bkv, C::BN);
-      load_tile<D>(v_s, &tm_v, kv_bar, k0, bkv, C::BN);
+      mbar_expect_tx(kv_bar, C::K_BYTES + C::V_BYTES);
+      load_tile<DK>(k_s, tm_k, kv_bar, k0, bkv, C::BN);
+      load_tile<DV>(v_s, tm_v, kv_bar, k0, bkv, C::BN);
     }
     for (int it = 0; it < group * per_head; ++it) {
       const int s = it % C::STAGES;
@@ -869,7 +908,7 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int bh = b * Hq + hk * group + g;
       if (it >= C::STAGES) mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
       uint8_t* st = st_s + s * C::STAGE;
-      float* lse_s = reinterpret_cast<float*>(st + 2 * C::Q_BYTES);
+      float* lse_s = reinterpret_cast<float*>(st + C::Q_BYTES + C::DO_BYTES);
       for (int c = lane; c < C::BQ; c += 32) {
         const bool ok = t0 + c < Tq;
         const int64_t ri = static_cast<int64_t>(bh) * Tq + t0 + c;
@@ -877,9 +916,9 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         lse_s[C::BQ + c] = ok ? delta[ri] : 0.f;
       }
       if (lane == 0) {  // its arrival carries the byte count of the loads
-        mbar_expect_tx(&full[s], 2 * C::Q_BYTES);
-        load_tile<D>(st, &tm_q, &full[s], t0, bh, C::BQ);
-        load_tile<D>(st + C::Q_BYTES, &tm_do, &full[s], t0, bh, C::BQ);
+        mbar_expect_tx(&full[s], C::Q_BYTES + C::DO_BYTES);
+        load_tile<DK>(st, tm_q, &full[s], t0, bh, C::BQ);
+        load_tile<DV>(st + C::Q_BYTES, tm_do, &full[s], t0, bh, C::BQ);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -890,9 +929,11 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);  // keys k0 + r0 (+ 8)
   const float sl2 = sm_scale * kLog2e;
-  float gk[D / 2], gv[D / 2];
+  float gk[DK / 2], gv[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) gk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) gv[i] = 0.f;
   const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
   mbar_wait(kv_bar, 0);
 
@@ -901,19 +942,20 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int t0 = (t_lo + it % per_head) * C::BQ;
     uint8_t* st = st_s + s * C::STAGE;
     const uint32_t q_addr = smem_u32(st), do_addr = q_addr + C::Q_BYTES;
-    const float* lse_s = reinterpret_cast<const float*>(st + 2 * C::Q_BYTES);
+    const float* lse_s =
+        reinterpret_cast<const float*>(st + C::Q_BYTES + C::DO_BYTES);
     mbar_wait(&full[s], (it / C::STAGES) & 1);
 
     float x[C::BQ / 2], dp[C::BQ / 2];  // S^T = K . Q^T, dP^T = V . dO^T
     wg_fence();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      Wgmma<C::BQ>::ss(x, kmajor<D, C::BN>(k_addr, k),
-                       kmajor<D, C::BQ>(q_addr, k), k > 0);
+    for (int k = 0; k < DK / 16; ++k)
+      Wgmma<C::BQ>::ss(x, kmajor<DK, C::BN>(k_addr, k),
+                       kmajor<DK, C::BQ>(q_addr, k), k > 0);
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      Wgmma<C::BQ>::ss(dp, kmajor<D, C::BN>(v_addr, k),
-                       kmajor<D, C::BQ>(do_addr, k), k > 0);
+    for (int k = 0; k < DV / 16; ++k)
+      Wgmma<C::BQ>::ss(dp, kmajor<DV, C::BN>(v_addr, k),
+                       kmajor<DV, C::BQ>(do_addr, k), k > 0);
     wg_commit();
     wg_wait();
     fence_regs(x);
@@ -938,10 +980,10 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg_fence();
 #pragma unroll
     for (int k = 0; k < C::BQ / 16; ++k)
-      Wgmma<D>::rs(gv, pa[k], mnmajor<D, C::BQ>(do_addr, k), 1);
+      rs_panels<DV, C::BQ>(gv, pa[k], do_addr, k);
 #pragma unroll
     for (int k = 0; k < C::BQ / 16; ++k)
-      Wgmma<D>::rs(gk, da[k], mnmajor<D, C::BQ>(q_addr, k), 1);
+      rs_panels<DK, C::BQ>(gk, da[k], q_addr, k);
     wg_commit();
     wg_wait();
     fence_regs(gk);
@@ -953,13 +995,18 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int r = 0; r < 2; ++r) {
     const int key = k0 + r0 + 8 * r;
     if (key >= mask.S) continue;
-    const int64_t off = (static_cast<int64_t>(bkv) * mask.S + key) * D;
+    const int64_t row = static_cast<int64_t>(bkv) * mask.S + key;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DK / 8; ++j) {
       const int col = 8 * j + (lane & 3) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + col) = __floats2bfloat162_rn(
-          gk[4 * j + 2 * r] * sm_scale, gk[4 * j + 2 * r + 1] * sm_scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+      *reinterpret_cast<__nv_bfloat162*>(dk + row * DK + col) =
+          __floats2bfloat162_rn(gk[4 * j + 2 * r] * sm_scale,
+                                gk[4 * j + 2 * r + 1] * sm_scale);
+    }
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      const int col = 8 * j + (lane & 3) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(dv + row * DV + col) =
           __floats2bfloat162_rn(gv[4 * j + 2 * r], gv[4 * j + 2 * r + 1]);
     }
   }
@@ -994,30 +1041,39 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 tensor [heads, rows, D] whose box is
-// [rows_per_box, min(D, 64)] of one head, swizzled as Layout<D> says.  A
-// box past `rows` zero-fills inside its own head.
-template <int D>
-bool make_map(CUtensorMap* map, const void* base, int64_t heads, int rows,
+// The tensor maps of a contiguous bf16 tensor [heads, rows, W], one per
+// panel kind (Panels<W>): each a 3-D map whose box is [that panel's width,
+// rows_per_box] of one head, swizzled over the panel's row bytes.  A box
+// past `rows` zero-fills inside its own head.
+template <int W>
+bool make_map(TMaps<W>* maps, const void* base, int64_t heads, int rows,
               int box_rows) {
-  using L = Layout<D>;
+  using P = Panels<W>;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(L::kCols),
-                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(W) * 2,
+                                 static_cast<cuuint64_t>(rows) * W * 2};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw = L::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : L::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const int widths[3] = {P::kN64 > 0 ? 64 : 0, P::kHas32 ? 32 : 0,
+                         P::kHas16 ? 16 : 0};
+  int i = 0;
+  for (int pw : widths) {
+    if (pw == 0) continue;
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(pw),
+                               static_cast<cuuint32_t>(box_rows), 1};
+    const CUtensorMapSwizzle sw = pw == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : pw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
+    if (fn(&maps->m[i++], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+           const_cast<void*>(base), dims, strides, box, elem,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+  }
+  return true;
 }
 
 // Raise a kernel's dynamic shared-memory limit to `bytes`, once for each
@@ -1037,95 +1093,101 @@ cudaError_t allow_smem(K kernel, int bytes, std::atomic<uint64_t>* done) {
   return err;
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 float* lse, int B, int Hq, int Hkv, int Tq, const Mask& mask,
                 float sm_scale, cudaStream_t stream) {
-  using C = Fwd<D>;
+  using C = Fwd<DK, DV>;
   if (mask.S == 0) {  // no key: every row is empty, out = 0 and lse = 0
     cudaError_t err = cudaMemsetAsync(
-        out, 0, static_cast<size_t>(B) * Hq * Tq * D * 2, stream);
+        out, 0, static_cast<size_t>(B) * Hq * Tq * DV * 2, stream);
     if (err != cudaSuccess) return err;
     return cudaMemsetAsync(lse, 0, static_cast<size_t>(B) * Hq * Tq * 4, stream);
   }
-  CUtensorMap mq, mk, mv;
-  if (!make_map<D>(&mq, q, static_cast<int64_t>(B) * Hq, Tq, C::BM) ||
-      !make_map<D>(&mk, k, static_cast<int64_t>(B) * Hkv, mask.S, C::BK) ||
-      !make_map<D>(&mv, v, static_cast<int64_t>(B) * Hkv, mask.S, C::BK))
+  TMaps<DK> mq, mk;
+  TMaps<DV> mv;
+  if (!make_map<DK>(&mq, q, static_cast<int64_t>(B) * Hq, Tq, C::BM) ||
+      !make_map<DK>(&mk, k, static_cast<int64_t>(B) * Hkv, mask.S, C::BK) ||
+      !make_map<DV>(&mv, v, static_cast<int64_t>(B) * Hkv, mask.S, C::BK))
     return cudaErrorInvalidValue;
   static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D>, C::SMEM, &smem_set);
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<DK, DV>, C::SMEM, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(Tq, C::BM), B * Hq);
-  flash_fwd_tc_kernel<D><<<grid, kBlock, C::SMEM, stream>>>(
+  flash_fwd_tc_kernel<DK, DV><<<grid, kBlock, C::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, Hq, Hkv, Tq, mask,
       sm_scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, float* delta, void* dq,
                 void* dk, void* dv, int B, int Hq, int Hkv, int Tq,
                 const Mask& mask, float sm_scale, cudaStream_t stream) {
   using T = __nv_bfloat16;
+  using Ckv = Dkv<DK, DV>;
+  using Cq = Dq<DK, DV>;
   if (mask.S == 0)  // no key: dq = 0 (dk and dv have no element)
-    return cudaMemsetAsync(dq, 0, static_cast<size_t>(B) * Hq * Tq * D * 2,
+    return cudaMemsetAsync(dq, 0, static_cast<size_t>(B) * Hq * Tq * DK * 2,
                            stream);
   const int64_t rows = static_cast<int64_t>(B) * Hq * Tq;
-  flash_bwd_delta_kernel<T, D><<<cdiv(rows, kThreads / 32), kThreads, 0,
-                                 stream>>>(static_cast<const T*>(out),
-                                           static_cast<const T*>(dout), delta,
-                                           rows);
+  flash_bwd_delta_kernel<T, DV><<<cdiv(rows, kThreads / 32), kThreads, 0,
+                                  stream>>>(static_cast<const T*>(out),
+                                            static_cast<const T*>(dout), delta,
+                                            rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t bhq = static_cast<int64_t>(B) * Hq, bhk = static_cast<int64_t>(B) * Hkv;
-  CUtensorMap mq, mk, mv, mdo;
-  if (!make_map<D>(&mq, q, bhq, Tq, Dkv<D>::BQ) ||
-      !make_map<D>(&mdo, dout, bhq, Tq, Dkv<D>::BQ) ||
-      !make_map<D>(&mk, k, bhk, mask.S, Dkv<D>::BN) ||
-      !make_map<D>(&mv, v, bhk, mask.S, Dkv<D>::BN))
+  TMaps<DK> mq, mk;
+  TMaps<DV> mv, mdo;
+  if (!make_map<DK>(&mq, q, bhq, Tq, Ckv::BQ) ||
+      !make_map<DV>(&mdo, dout, bhq, Tq, Ckv::BQ) ||
+      !make_map<DK>(&mk, k, bhk, mask.S, Ckv::BN) ||
+      !make_map<DV>(&mv, v, bhk, mask.S, Ckv::BN))
     return cudaErrorInvalidValue;
   static std::atomic<uint64_t> dkdv_smem_set{0}, dq_smem_set{0};
-  err = allow_smem(flash_bwd_dkdv_tc_kernel<D>, Dkv<D>::SMEM, &dkdv_smem_set);
+  err = allow_smem(flash_bwd_dkdv_tc_kernel<DK, DV>, Ckv::SMEM, &dkdv_smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 gkv(cdiv(mask.S, Dkv<D>::BN), B * Hkv);
-  flash_bwd_dkdv_tc_kernel<D><<<gkv, kBlock, Dkv<D>::SMEM, stream>>>(
+  const dim3 gkv(cdiv(mask.S, Ckv::BN), B * Hkv);
+  flash_bwd_dkdv_tc_kernel<DK, DV><<<gkv, kBlock, Ckv::SMEM, stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       Hq, Hkv, Tq, mask, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // the dq kernel's boxes: 64 keys, as the dK/dV kernel's; 64 q rows, which
-  // differ from its q tile only at d = 128
-  static_assert(Dq<D>::BK == Dkv<D>::BN, "the K/V maps serve both kernels");
-  if constexpr (Dq<D>::BM != Dkv<D>::BQ) {
-    if (!make_map<D>(&mq, q, bhq, Tq, Dq<D>::BM) ||
-        !make_map<D>(&mdo, dout, bhq, Tq, Dq<D>::BM))
+  // differ from its q tile where that is 32 rows
+  static_assert(Cq::BK == Ckv::BN, "the K/V maps serve both kernels");
+  if constexpr (Cq::BM != Ckv::BQ) {
+    if (!make_map<DK>(&mq, q, bhq, Tq, Cq::BM) ||
+        !make_map<DV>(&mdo, dout, bhq, Tq, Cq::BM))
       return cudaErrorInvalidValue;
   }
-  err = allow_smem(flash_bwd_dq_tc_kernel<D>, Dq<D>::SMEM, &dq_smem_set);
+  err = allow_smem(flash_bwd_dq_tc_kernel<DK, DV>, Cq::SMEM, &dq_smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 gq(cdiv(Tq, Dq<D>::BM), B * Hq);
-  flash_bwd_dq_tc_kernel<D><<<gq, kBlock, Dq<D>::SMEM, stream>>>(
+  const dim3 gq(cdiv(Tq, Cq::BM), B * Hq);
+  flash_bwd_dq_tc_kernel<DK, DV><<<gq, kBlock, Cq::SMEM, stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<T*>(dq), Hq, Hkv, Tq, mask,
       sm_scale);
   return cudaGetLastError();
 }
 
-// The tile plan of the kernels above at head dim D, on the host: for each
+// The tile plan of the kernels above at head dims (DK, DV), on the host: for each
 // q block i of the forward and dQ kernels, kv[2i], kv[2i + 1] = [lo, hi) of
 // its kv tiles and kv_full[i * n_kv + t] = 1 where kv tile t takes no
 // element mask; for each key block j of the dK/dV kernel, qt[2j],
 // qt[2j + 1] = [lo, hi) of its q tiles and q_full[j * n_qt + t] likewise
 // (n_kv = cdiv(S, 64), n_qt = cdiv(Tq, bq)).  Returns bq, the dK/dV
 // kernel's q rows per tile, and writes nothing where kv is null.
-template <int D>
+template <int DK, int DV>
 int tile_plan(int Tq, const Mask& mask, int* kv, unsigned char* kv_full,
               int* qt, unsigned char* q_full) {
-  static_assert(Fwd<D>::BM == Dq<D>::BM && Fwd<D>::BK == Dq<D>::BK,
+  using F = Fwd<DK, DV>;
+  using Cq = Dq<DK, DV>;
+  static_assert(F::BM == Cq::BM && F::BK == Cq::BK,
                 "the forward and dQ kernels share their tiles");
-  constexpr int BM = Fwd<D>::BM, BK = Fwd<D>::BK;
-  constexpr int BN = Dkv<D>::BN, BQ = Dkv<D>::BQ;
+  constexpr int BM = F::BM, BK = F::BK;
+  constexpr int BN = Dkv<DK, DV>::BN, BQ = Dkv<DK, DV>::BQ;
   if (kv == nullptr) return BQ;
   const int n_kv = cdiv(mask.S, BK), n_qt = cdiv(Tq, BQ);
   for (int i = 0; i < cdiv(Tq, BM); ++i) {
@@ -1150,88 +1212,84 @@ int tile_plan(int Tq, const Mask& mask, int* kv, unsigned char* kv_full,
 
 }  // namespace tc
 
-// dtype 0 (f32) runs the SIMT kernels, dtype 1 (bf16) the tensor-core ones
-#define FA_DISPATCH(DTYPE, D, CALL_F32, CALL_BF16)                          \
-  do {                                                                      \
-    if (DTYPE == 0) {                                                       \
-      using T = float;                                                      \
-      switch (D) {                                                          \
-        case 16: { constexpr int HD = 16; return CALL_F32; }                \
-        case 32: { constexpr int HD = 32; return CALL_F32; }                \
-        case 64: { constexpr int HD = 64; return CALL_F32; }                \
-        case 128: { constexpr int HD = 128; return CALL_F32; }              \
-      }                                                                     \
-    } else if (DTYPE == 1) {                                                \
-      switch (D) {                                                          \
-        case 16: { constexpr int HD = 16; return CALL_BF16; }               \
-        case 32: { constexpr int HD = 32; return CALL_BF16; }               \
-        case 64: { constexpr int HD = 64; return CALL_BF16; }               \
-        case 128: { constexpr int HD = 128; return CALL_BF16; }             \
-      }                                                                     \
-    }                                                                       \
-    return static_cast<int>(cudaErrorInvalidValue);                         \
-  } while (0)
+// The (d, dv) pairs the kernels are compiled for: the q/k width and the v
+// width.  kernels/flash_attention.py's SHAPES lists the same pairs.
+#define FA_SHAPES(X) \
+  X(16, 16) X(32, 32) X(48, 32) X(64, 64) X(80, 80) X(128, 128) X(192, 128)
+
+// dtype 0 (f32) runs the SIMT kernels, dtype 1 (bf16) the tensor-core ones;
+// CALL names the pair as DK, DV
+#define FA_CASE_F32(PK, PV) \
+  if (D == PK && DVW == PV) { constexpr int DK = PK, DV = PV; return CALL_F32; }
+#define FA_CASE_BF16(PK, PV) \
+  if (D == PK && DVW == PV) { constexpr int DK = PK, DV = PV; return CALL_BF16; }
 
 }  // namespace
 
-// dtype codes: 0 = f32, 1 = bf16; head dims 16, 32, 64, 128.  Tensors are
-// contiguous [B, H, T|S, D]; bf16 ones 16-byte aligned (TMA).  Returns the
-// cudaError_t of the launches (0 on success); shapes are checked by the
-// caller.
+// dtype codes: 0 = f32, 1 = bf16; (D, DVW) one of FA_SHAPES.  Tensors are
+// contiguous [B, H, T|S, width]; bf16 ones 16-byte aligned (TMA).  Returns
+// the cudaError_t of the launches (0 on success; cudaErrorInvalidValue for
+// a pair not compiled); shapes are checked by the caller.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, float* lse, int B,
-    int Hq, int Hkv, int Tq, int S, int D, int causal, int window,
+    int Hq, int Hkv, int Tq, int S, int D, int DVW, int causal, int window,
     int q_offset, float sm_scale, int dtype, void* stream) {
   if (B * Hq == 0 || Tq == 0) return 0;
   if (Hkv < 1 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   const Mask mask{S, causal, window, q_offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(dtype, D,
-              static_cast<int>((fwd<T, HD>(q, k, v, out, lse, B, Hq, Hkv, Tq,
-                                           mask, sm_scale, s))),
-              static_cast<int>((tc::fwd<HD>(q, k, v, out, lse, B, Hq, Hkv, Tq,
-                                            mask, sm_scale, s))));
+#define CALL_F32 \
+  static_cast<int>(fwd<float, DK, DV>(q, k, v, out, lse, B, Hq, Hkv, Tq, mask, sm_scale, s))
+#define CALL_BF16 \
+  static_cast<int>(tc::fwd<DK, DV>(q, k, v, out, lse, B, Hq, Hkv, Tq, mask, sm_scale, s))
+  if (dtype == 0) { FA_SHAPES(FA_CASE_F32) }
+  if (dtype == 1) { FA_SHAPES(FA_CASE_BF16) }
+#undef CALL_F32
+#undef CALL_BF16
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// delta is f32 scratch [B, Hq, T]; dq is [B, Hq, T, D], dk/dv [B, Hkv, S, D].
+// delta is f32 scratch [B, Hq, T]; dq is [B, Hq, T, D], dk [B, Hkv, S, D],
+// dv [B, Hkv, S, DVW].
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int B, int Hq, int Hkv, int Tq, int S, int D, int causal,
-    int window, int q_offset, float sm_scale, int dtype, void* stream) {
+    void* dv, int B, int Hq, int Hkv, int Tq, int S, int D, int DVW,
+    int causal, int window, int q_offset, float sm_scale, int dtype,
+    void* stream) {
   if (B * Hq == 0) return 0;
   if (Hkv < 1 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Tq == 0) {  // no query: dk = dv = 0
-    const size_t n = static_cast<size_t>(B) * Hkv * S * D * (dtype ? 2 : 4);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaMemsetAsync(dk, 0, n, s);
-    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, n, s);
+    const size_t n = static_cast<size_t>(B) * Hkv * S * (dtype ? 2 : 4);
+    cudaError_t err = cudaMemsetAsync(dk, 0, n * D, s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, n * DVW, s);
     return static_cast<int>(err);
   }
   const Mask mask{S, causal, window, q_offset};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(dtype, D,
-              static_cast<int>((bwd<T, HD>(q, k, v, out, dout, lse, delta, dq,
-                                           dk, dv, B, Hq, Hkv, Tq, mask,
-                                           sm_scale, s))),
-              static_cast<int>((tc::bwd<HD>(q, k, v, out, dout, lse, delta,
-                                            dq, dk, dv, B, Hq, Hkv, Tq, mask,
-                                            sm_scale, s))));
+#define CALL_F32                                                             \
+  static_cast<int>(bwd<float, DK, DV>(q, k, v, out, dout, lse, delta, dq, dk, \
+                                      dv, B, Hq, Hkv, Tq, mask, sm_scale, s))
+#define CALL_BF16                                                            \
+  static_cast<int>(tc::bwd<DK, DV>(q, k, v, out, dout, lse, delta, dq, dk,   \
+                                   dv, B, Hq, Hkv, Tq, mask, sm_scale, s))
+  if (dtype == 0) { FA_SHAPES(FA_CASE_F32) }
+  if (dtype == 1) { FA_SHAPES(FA_CASE_BF16) }
+#undef CALL_F32
+#undef CALL_BF16
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The bf16 kernels' tile plan (tc::tile_plan), computed on the host by the
 // Mask functions the kernels run; chip_smoke.py holds it against the
-// element mask.  Returns -1 for a head dim the kernels do not take.
-extern "C" int flash_attention_tile_plan(int Tq, int S, int D, int causal,
-                                         int window, int q_offset, int* kv,
-                                         unsigned char* kv_full, int* qt,
-                                         unsigned char* q_full) {
+// element mask.  Returns -1 for a pair the kernels do not take.
+extern "C" int flash_attention_tile_plan(int Tq, int S, int D, int DVW,
+                                         int causal, int window, int q_offset,
+                                         int* kv, unsigned char* kv_full,
+                                         int* qt, unsigned char* q_full) {
   const Mask mask{S, causal, window, q_offset};
-  switch (D) {
-    case 16: return tc::tile_plan<16>(Tq, mask, kv, kv_full, qt, q_full);
-    case 32: return tc::tile_plan<32>(Tq, mask, kv, kv_full, qt, q_full);
-    case 64: return tc::tile_plan<64>(Tq, mask, kv, kv_full, qt, q_full);
-    case 128: return tc::tile_plan<128>(Tq, mask, kv, kv_full, qt, q_full);
-  }
+#define CALL_BF16 tc::tile_plan<DK, DV>(Tq, mask, kv, kv_full, qt, q_full)
+  FA_SHAPES(FA_CASE_BF16)
+#undef CALL_BF16
   return -1;
 }

@@ -20,9 +20,11 @@ gradient of the same function is a hand-written kernel too.  Pieces:
   the reference's ``repro.kernels.ops._xla_flash_attention`` (chunked
   online softmax over kv blocks of 512, each block's step checkpointed so
   autograd recomputes its score tile, as the reference does).
-* the layout: ``q [B, Hq, T, d]``, ``k``/``v [B, Hkv, S, d]`` in f32 or
-  bf16, ``Hq % Hkv == 0``; scores and accumulators f32, masked scores
-  -1e30; the output is in q's dtype.  A q row at absolute position
+* the layout: ``q [B, Hq, T, d]``, ``k [B, Hkv, S, d]``, ``v [B, Hkv, S,
+  dv]`` in f32 or bf16, ``Hq % Hkv == 0``; the output is ``[B, Hq, T, dv]``
+  in q's dtype, scores ``(q . k) d^-0.5``; scores and accumulators f32,
+  masked scores -1e30.  The kernels take the (d, dv) pairs of
+  :data:`SHAPES`, every pair a config of the zoo reaches.  A q row at absolute position
   ``q_offset + t`` sees key ``s`` when ``s < S`` and, if ``causal``,
   ``s <= q_offset + t`` and, if ``window``, ``s > q_offset + t - window``.
   A row that sees no key is exact 0.
@@ -43,8 +45,13 @@ from torch.utils.checkpoint import checkpoint
 from . import check_aligned, empty_for_kernel, stream_of
 
 NEG_INF = -1e30
-#: Head dims the kernel is compiled for.
-HEAD_DIMS = (16, 32, 64, 128)
+#: (d, dv) pairs the kernels are compiled for (``FA_SHAPES`` in
+#: ``csrc/flash_attention.cu``): the q/k width and the v width.  Beside 16,
+#: 32, 64 and 128: (48, 32), the reduced MLA config (qk_nope 32 + qk_rope
+#: 16, v 32); (80, 80), hubert-xlarge; (192, 128), deepseek-v2's MLA
+#: (qk_nope 128 + qk_rope 64, v 128).
+SHAPES = ((16, 16), (32, 32), (48, 32), (64, 64), (80, 80), (128, 128),
+          (192, 128))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -127,11 +134,14 @@ def _check_cuda(q, k, v, window, q_offset):
         raise TypeError(f"flash_attention takes float32 or bfloat16, not {q.dtype}")
     B, Hq, T, d = q.shape
     Bk, Hkv, S, dk = k.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if Bk != B or dk != d or tuple(v.shape) != (B, Hkv, S, d):
+    dv = v.shape[3]
+    if Bk != B or dk != d or tuple(v.shape[:3]) != (B, Hkv, S):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not match (dv must equal d)")
+                         f"v {tuple(v.shape)} do not match (q, k [B, H, T|S, "
+                         f"d], v [B, Hkv, S, dv])")
+    if (d, dv) not in SHAPES:
+        raise ValueError(f"head dims (d, dv) = {(d, dv)} not in the kernels' "
+                         f"SHAPES {SHAPES}")
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
     if isinstance(q_offset, torch.Tensor) or int(q_offset) != q_offset \
@@ -142,7 +152,7 @@ def _check_cuda(q, k, v, window, q_offset):
         raise ValueError(f"window must be >= 0, got {window}")
     if q.dtype == torch.bfloat16:
         check_aligned(q=q, k=k, v=v)
-    return B, Hq, Hkv, T, S, d
+    return B, Hq, Hkv, T, S, d, dv
 
 
 def _lib():
@@ -151,29 +161,29 @@ def _lib():
     lib = _build.load("flash_attention")
     if lib.flash_attention_fwd_launch.argtypes is None:
         i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-        lib.flash_attention_fwd_launch.argtypes = [p] * 5 + [i] * 9 + [f, i, p]
+        lib.flash_attention_fwd_launch.argtypes = [p] * 5 + [i] * 10 + [f, i, p]
         lib.flash_attention_fwd_launch.restype = i
-        lib.flash_attention_bwd_launch.argtypes = [p] * 10 + [i] * 9 + [f, i, p]
+        lib.flash_attention_bwd_launch.argtypes = [p] * 10 + [i] * 10 + [f, i, p]
         lib.flash_attention_bwd_launch.restype = i
-        lib.flash_attention_tile_plan.argtypes = [i] * 6 + [p] * 4
+        lib.flash_attention_tile_plan.argtypes = [i] * 7 + [p] * 4
         lib.flash_attention_tile_plan.restype = i
     return lib
 
 
-def tile_plan(T: int, S: int, d: int, causal: bool, window: int,
+def tile_plan(T: int, S: int, d: int, dv: int, causal: bool, window: int,
               q_offset: int) -> dict:
-    """The bf16 kernels' skip ranges and tile classes, computed on the host
-    by the same functions the kernels run (it needs the built library, not
-    a card).  Returns ``kv [n_q_blocks, 2]``: [lo, hi) of each 64-row q
+    """The bf16 kernels' skip ranges and tile classes at head dims (d, dv),
+    computed on the host by the same functions the kernels run (it needs
+    the built library, not a card).  Returns ``kv [n_q_blocks, 2]``: [lo, hi) of each 64-row q
     block's 64-key tiles (forward and dQ kernels); ``kv_full [n_q_blocks,
     n_kv_tiles]``: which of them take no element mask; ``qt``, ``q_full``:
     the same for the dK/dV kernel's q tiles of ``bq`` rows in each 64-key
     block; and ``bq``."""
     lib, cdiv = _lib(), lambda a, b: -(-a // b)
-    args = (T, S, d, int(bool(causal)), int(window), int(q_offset))
+    args = (T, S, d, dv, int(bool(causal)), int(window), int(q_offset))
     bq = lib.flash_attention_tile_plan(*args, None, None, None, None)
     if bq < 0:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+        raise ValueError(f"head dims {(d, dv)} not in SHAPES {SHAPES}")
     kv = torch.zeros((cdiv(T, 64), 2), dtype=torch.int32)
     kv_full = torch.zeros((cdiv(T, 64), cdiv(S, 64)), dtype=torch.uint8)
     qt = torch.zeros((cdiv(S, 64), 2), dtype=torch.int32)
@@ -187,14 +197,15 @@ def tile_plan(T: int, S: int, d: int, causal: bool, window: int,
 def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0,
                         q_offset: int = 0):
     """Launch the forward kernel on CUDA tensors → ``(out, lse)``, with
-    ``lse [B, Hq, T]`` f32 the per-row log-sum-exp the backward takes."""
-    B, Hq, Hkv, T, S, d = _check_cuda(q, k, v, window, q_offset)
-    out = empty_for_kernel((B, Hq, T, d), q.dtype, q.device)
+    ``lse [B, Hq, T]`` f32 the per-row log-sum-exp the backward takes;
+    ``out`` is ``[B, Hq, T, dv]``."""
+    B, Hq, Hkv, T, S, d, dv = _check_cuda(q, k, v, window, q_offset)
+    out = empty_for_kernel((B, Hq, T, dv), q.dtype, q.device)
     lse = empty_for_kernel((B, Hq, T), torch.float32, q.device)
     with torch.cuda.device(q.device):
         err = _lib().flash_attention_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Hq, Hkv, T, S, d, int(bool(causal)),
+            lse.data_ptr(), B, Hq, Hkv, T, S, d, dv, int(bool(causal)),
             int(window), int(q_offset), d**-0.5, _DTYPE_CODE[q.dtype],
             stream_of(q))
     if err != 0:
@@ -207,16 +218,18 @@ def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0,
 def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True,
                         window: int = 0, q_offset: int = 0):
     """Launch the backward kernels on CUDA tensors → ``(dq, dk, dv)`` in
-    the inputs' dtype.  Deterministic: the same inputs give the same bits."""
-    B, Hq, Hkv, T, S, d = _check_cuda(q, k, v, window, q_offset)
+    the inputs' dtype (``dv [B, Hkv, S, dv]`` as v).  Deterministic: the
+    same inputs give the same bits."""
+    B, Hq, Hkv, T, S, d, dv_ = _check_cuda(q, k, v, window, q_offset)
     for name, t, dt in (("out", out, q.dtype), ("dout", dout, q.dtype),
                         ("lse", lse, torch.float32)):
         if t.device != q.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor on "
                              f"{q.device}")
-    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape) \
-            or tuple(lse.shape) != (B, Hq, T):
-        raise ValueError("out/dout must match q and lse must be [B, Hq, T]")
+    if tuple(out.shape) != (B, Hq, T, dv_) or tuple(dout.shape) != \
+            (B, Hq, T, dv_) or tuple(lse.shape) != (B, Hq, T):
+        raise ValueError(f"out/dout must be [B, Hq, T, dv] = "
+                         f"{(B, Hq, T, dv_)} and lse [B, Hq, T]")
     if q.dtype == torch.bfloat16:
         check_aligned(dout=dout)
     delta = empty_for_kernel((B, Hq, T), torch.float32, q.device)
@@ -227,7 +240,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True,
         err = _lib().flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, T, S, d,
+            dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, T, S, d, dv_,
             int(bool(causal)), int(window), int(q_offset), d**-0.5,
             _DTYPE_CODE[q.dtype], stream_of(q))
     if err != 0:
@@ -259,8 +272,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     q_offset: int = 0):
-    """GQA flash attention ``[B, Hq, T, d]`` → ``[B, Hq, T, d]`` in q's
-    dtype (see the module docstring).  CPU tensors run the plain version;
+    """GQA flash attention ``q [B, Hq, T, d]``, ``v [B, Hkv, S, dv]`` →
+    ``[B, Hq, T, dv]`` in q's dtype (see the module docstring).  CPU tensors run the plain version;
     CUDA tensors run the Hopper kernels, forward and backward."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, q_offset)

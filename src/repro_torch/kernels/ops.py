@@ -22,8 +22,8 @@ __all__ = ["dequantize_blockwise", "dequantize_page", "flash_attention",
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     q_offset: int = 0):
-    """GQA flash attention: q ``[B,Hq,T,d]``, k/v ``[B,Hkv,S,d]`` →
-    ``[B,Hq,T,d]``.  ``q_offset`` is static (a Python int): the dynamic
+    """GQA flash attention: q ``[B,Hq,T,d]``, k ``[B,Hkv,S,d]``, v
+    ``[B,Hkv,S,dv]`` → ``[B,Hq,T,dv]``.  ``q_offset`` is static (a Python int): the dynamic
     offset of the reference's decode path belongs to the decode slice."""
     if isinstance(q_offset, torch.Tensor):
         raise NotImplementedError(

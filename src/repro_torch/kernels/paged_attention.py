@@ -4,11 +4,16 @@ Port of the Pallas TPU kernel :mod:`repro.kernels.paged_attention`.  Three
 pieces, one contract:
 
 * :func:`paged_attention` — the wrapper.  A CUDA tensor goes to the
-  hand-written Hopper kernel ``csrc/paged_attention.cu`` (built by
+  hand-written Hopper kernels of ``csrc/paged_attention.cu`` (built by
   :mod:`repro_torch.kernels._build` on first use, launched on the current
-  stream, counted in ``paged_attention.launches``); a CPU tensor goes to
-  the plain version.  Nothing falls back: a CUDA call that the kernel does
-  not take, or whose build or launch fails, raises.
+  stream, each call counted once in ``paged_attention.launches``): a
+  split kernel, whose blocks take ``split`` tokens of a row each (see
+  :func:`plan`), and, where some row could hold more than one split, a
+  merge kernel that combines a row's splits in order.  A CPU tensor goes
+  to the plain version.  Nothing falls back: a CUDA call that the kernel
+  does not take (widths not multiples of 4, d past 256, dv past 512,
+  pages too large for shared memory, a pool whose base is off the
+  kernel's copy size), or whose build or launch fails, raises.
 * :func:`paged_attention_plain` — the plain PyTorch version, the port of
   the reference's vectorized twin ``repro.kernels.ops._xla_paged_attention``:
   gather the ``[B, Hq, npm, ps]`` K/V blocks through the page table, mask,
@@ -50,7 +55,57 @@ NEG_INF = -1e30
 #: Storage dtypes the kernel reads, with its storage code.
 _STORAGE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                  torch.float8_e4m3fn: 3}
-_MAX_DV = 512  # the kernel keeps at most 4 output lanes per thread of 128
+_MAX_D, _MAX_DV = 256, 512
+_MAX_SMEM = 232448  # a block's shared memory on Hopper
+_WARPS = 8  # warps of a block, each with its own online softmax
+#: The kernel's constants (``kSplitTokens``, ``kChunkBytes``, ``kMaxChunk``,
+#: ``kStages`` in ``csrc/paged_attention.cu``): tokens of a split, K and V
+#: bytes of a chunk of one head, tokens of a chunk at most, chunks in the
+#: shared-memory ring.
+SPLIT_TOKENS, CHUNK_BYTES, MAX_CHUNK, STAGES = 256, 32768, 128, 3
+
+
+def plan(ps: int, d: int, dv: int, elem: int) -> tuple[int, int]:
+    """``(chunk, split)`` in tokens for pages of ``ps`` slots, widths d and
+    dv stored in ``elem`` bytes: a chunk is the whole pages of CHUNK_BYTES
+    (at most MAX_CHUNK tokens, at least one page), a split the whole chunks
+    of SPLIT_TOKENS (at least one).  The kernel's ``make_plan`` is the
+    same; a row of ``n`` tokens has ``ceil(n / split)`` splits."""
+    pages = CHUNK_BYTES // ((d + dv) * elem * ps)
+    pages = max(1, min(pages, MAX_CHUNK // ps))
+    chunk = pages * ps
+    return chunk, max(1, SPLIT_TOKENS // chunk) * chunk
+
+
+def _smem(chunk: int, split: int, ps: int, d: int, dv: int, elem: int,
+          group: int) -> int:
+    """The split kernel's shared memory (``smem_bytes``): the ring, which
+    the warps' states reuse at the end, q, the split's page ids and
+    scales."""
+    ring = max(STAGES * chunk * (d + dv) * elem, _WARPS * group * (dv + 2) * 4)
+    return -(-ring // 16) * 16 + 4 * group * d + 12 * (split // ps)
+
+
+def copy_bytes(d: int, dv: int, elem: int) -> int:
+    """Bytes of one of the kernel's asynchronous copies (``copy_bytes``):
+    the largest of 16, 8, 4 that divides a K row and a V row."""
+    rows = (d * elem) | (dv * elem)
+    return 16 if rows % 16 == 0 else 8 if rows % 8 == 0 else 4
+
+
+def _cols(group: int) -> int:
+    """Output columns a lane holds for each head (``kCols``)."""
+    return 16 if group <= 2 else 32 // group
+
+
+def block_group(Hq: int, Hkv: int, dv: int, grouped: bool) -> int:
+    """q heads a block serves: in plain GQA the largest of 8, 4, 2 that
+    divides the group ``Hq / Hkv`` and whose outputs fit a warp's lanes
+    (``dv <= 32 * _cols(g)``), else 1; with explicit head maps 1."""
+    if not grouped:
+        return 1
+    return next(g for g in (8, 4, 2, 1)
+                if (Hq // Hkv) % g == 0 and dv <= 32 * _cols(g))
 
 
 def _defaults(q, k_pages, k_scale, v_scale, kv_head, page_offset, sm_scale):
@@ -129,8 +184,10 @@ def _check_cuda(q, k_pages, v_pages, table, lengths, k_scale, v_scale,
     if k_pages.dtype != v_pages.dtype or k_pages.dtype not in _STORAGE_CODE:
         raise TypeError(f"page dtype {k_pages.dtype}/{v_pages.dtype} not in "
                         f"{sorted(map(str, _STORAGE_CODE))}")
-    if dv > _MAX_DV:
-        raise ValueError(f"dv={dv} exceeds the kernel's {_MAX_DV}")
+    if d % 4 or dv % 4 or not 0 < d <= _MAX_D or not 0 < dv <= _MAX_DV:
+        raise ValueError(f"the kernel takes widths that are multiples of 4, "
+                         f"d <= {_MAX_D} and dv <= {_MAX_DV}; got d={d}, "
+                         f"dv={dv}")
     for name, t, shape in (("table", table, (B, table.shape[-1])),
                            ("lengths", lengths, (B,)),
                            ("kv_head", kv_head, (Hq,)),
@@ -141,19 +198,38 @@ def _check_cuda(q, k_pages, v_pages, table, lengths, k_scale, v_scale,
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if t.dtype != torch.float32 or tuple(t.shape) != (n_pages, Hkv):
             raise ValueError(f"{name} must be float32 {(n_pages, Hkv)}")
+    unit = copy_bytes(d, dv, k_pages.element_size())
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % unit:
+            raise ValueError(f"{name} must start on a {unit}-byte boundary "
+                             f"(the kernel's copies); got {t.data_ptr():#x}")
     return B, Hq, d, dv, ps, Hkv, table.shape[1]
 
 
-def _kernel():
+def _lib():
     from . import _build
 
     lib = _build.load("paged_attention")
-    fn = lib.paged_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.paged_attention_launch.argtypes is None:
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.paged_attention_launch.argtypes = [p] * 13 + [i] * 10 + \
+            [ctypes.c_float, i, p]
+        lib.paged_attention_launch.restype = i
+        lib.paged_attention_plan.argtypes = [i] * 5 + [p]
+        lib.paged_attention_plan.restype = i
+    return lib
+
+
+def kernel_plan(ps: int, d: int, dv: int, dtype: torch.dtype,
+                group: int = 1) -> tuple[int, int, int]:
+    """``(chunk, split, shared-memory bytes)`` as the built library plans
+    them (needs the library, not a card); :func:`plan` must agree."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().paged_attention_plan(ps, d, dv, _STORAGE_CODE[dtype], group,
+                                      out)
+    if err != 0:
+        raise ValueError(f"paged_attention_plan refused {(ps, d, dv, dtype)}")
+    return tuple(out)
 
 
 def paged_attention(q, k_pages, v_pages, table, lengths, k_scale=None,
@@ -161,11 +237,12 @@ def paged_attention(q, k_pages, v_pages, table, lengths, k_scale=None,
                     sm_scale=None):
     """Decode attention off the paged pool → ``[B, Hq, dv]`` in ``q.dtype``
     (see the module docstring for the layout).  CPU tensors run the plain
-    version; CUDA tensors launch the Hopper kernel."""
+    version; CUDA tensors launch the Hopper kernels (one count a call)."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, table, lengths,
                                      k_scale, v_scale, kv_head, page_offset,
                                      sm_scale)
+    grouped = kv_head is None and page_offset is None
     k_scale, v_scale, kv_head, page_offset, sm_scale = _defaults(
         q, k_pages, k_scale, v_scale, kv_head, page_offset, sm_scale)
     if q.device.type != "cuda":
@@ -173,15 +250,30 @@ def paged_attention(q, k_pages, v_pages, table, lengths, k_scale=None,
     B, Hq, d, dv, ps, Hkv, npm = _check_cuda(
         q, k_pages, v_pages, table, lengths, k_scale, v_scale, kv_head,
         page_offset)
-    fn = _kernel()
+    group = block_group(Hq, Hkv, dv, grouped)
+    elem = k_pages.element_size()
+    chunk, split = plan(ps, d, dv, elem)
+    if chunk > MAX_CHUNK or _smem(chunk, split, ps, d, dv, elem, group) > \
+            _MAX_SMEM:
+        raise ValueError(f"pages of {ps} slots at d={d}, dv={dv} do not fit "
+                         f"the kernel's chunks (at most {MAX_CHUNK} tokens) "
+                         f"or shared memory")
+    n_splits = max(1, -(-npm * ps // split))
     out = empty_for_kernel((B, Hq, dv), torch.float32, q.device)
+    parts = [None] * 3  # (m, l, acc) of each split, where a row may have two
+    if n_splits > 1:
+        parts = [empty_for_kernel(shape, torch.float32, q.device) for shape in
+                 ((B, Hq, n_splits), (B, Hq, n_splits),
+                  (B, Hq, n_splits, dv))]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 table.data_ptr(), lengths.data_ptr(), k_scale.data_ptr(),
-                 v_scale.data_ptr(), kv_head.data_ptr(),
-                 page_offset.data_ptr(), out.data_ptr(), B, Hq, d, dv, ps,
-                 Hkv, npm, sm_scale, _STORAGE_CODE[k_pages.dtype],
-                 stream_of(q))
+        err = _lib().paged_attention_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            table.data_ptr(), lengths.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), kv_head.data_ptr(), page_offset.data_ptr(),
+            out.data_ptr(), *map(ptr, parts), B, Hq, d, dv, ps, Hkv, npm,
+            group, n_splits, split, sm_scale, _STORAGE_CODE[k_pages.dtype],
+            stream_of(q))
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError_t {err}")

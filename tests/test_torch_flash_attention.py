@@ -1,7 +1,9 @@
 """The port's flash attention against the JAX package: its plain version
 against the Pallas kernel in interpret mode and against the naive oracle
 ``repro.kernels.ref.attention`` over the reference's sweep (``ATT_CASES``
-of tests/test_kernels.py) in f32 and bf16, at the reference's tolerances;
+of tests/test_kernels.py) and the head widths the configs reach beyond it
+(d 80; d 192 with dv 128; d 48 with dv 32) in f32 and bf16, at the
+reference's tolerances;
 its gradients (autograd through the plain version) against ``jax.grad``
 of the oracle; and the wrapper's contract.  The CUDA kernels run only on
 the card (``chip_smoke.py`` holds them against the plain version there);
@@ -18,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as fa_pallas  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -30,6 +33,11 @@ ATT_CASES = [
     (2, 4, 2, 256, 256, 64, True, 64, 0),    # sliding window
     (1, 1, 1, 64, 64, 128, True, 0, 0),
     (1, 4, 2, 1, 513, 64, True, 0, 512),     # single-token decode
+    # beyond the reference's sweep, a 10th entry dv (the v width): the
+    # widths the configs reach at published or reduced size
+    (1, 2, 2, 160, 160, 80, False, 0, 0, 80),    # hubert-xlarge, bidirectional
+    (1, 4, 2, 128, 128, 192, True, 0, 0, 128),   # deepseek-v2 MLA, GQA
+    (2, 2, 1, 100, 100, 48, True, 0, 0, 32),     # reduced MLA, ragged T
 ]
 IDS = [str(c) for c in ATT_CASES]
 ATOL = {"f32": 3e-5, "bf16": 3e-2}  # tests/test_kernels.py:49
@@ -48,16 +56,34 @@ def _torch_settings():
     torch.use_deterministic_algorithms(det)
 
 
+def _dv(case):
+    """The v width of a case: its 10th entry, else d."""
+    return case[9] if len(case) > 9 else case[5]
+
+
+def _round(arrays, dtype):
+    if dtype == "bf16":
+        return [np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                for a in arrays]
+    return arrays
+
+
 def _inputs(case, dtype, seed=0):
     """Seeded numpy inputs, rounded to bf16 when asked (so both packages
     see the same values).  Returns (q, k, v) as numpy f32 arrays."""
     B, Hq, Hkv, T, S, d = case[:6]
     rng = np.random.default_rng(seed)
-    out = [rng.normal(size=s).astype(np.float32)
-           for s in ((B, Hq, T, d), (B, Hkv, S, d), (B, Hkv, S, d))]
-    if dtype == "bf16":
-        out = [np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32) for a in out]
-    return out
+    return _round([rng.normal(size=s).astype(np.float32)
+                   for s in ((B, Hq, T, d), (B, Hkv, S, d),
+                             (B, Hkv, S, _dv(case)))], dtype)
+
+
+def _dout(case, dtype, seed):
+    """A seeded output gradient ``[B, Hq, T, dv]``."""
+    B, Hq, _, T = case[:4]
+    rng = np.random.default_rng(seed)
+    return _round([rng.normal(size=(B, Hq, T, _dv(case))).astype(np.float32)],
+                  dtype)[0]
 
 
 def _torch(a, dtype):
@@ -72,7 +98,7 @@ def _jax(a, dtype):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("case", ATT_CASES, ids=IDS)
 def test_plain_vs_pallas_interpret_and_oracle(case, dtype):
-    causal, window, off = case[6:]
+    causal, window, off = case[6:9]
     q, k, v = _inputs(case, dtype)
     got = fa.flash_attention_plain(_torch(q, dtype), _torch(k, dtype),
                                    _torch(v, dtype), causal, window, off)
@@ -90,9 +116,9 @@ def test_plain_vs_pallas_interpret_and_oracle(case, dtype):
 
 @pytest.mark.parametrize("case", ATT_CASES, ids=IDS)
 def test_plain_gradients_vs_jax_grad_of_oracle(case):
-    causal, window, off = case[6:]
+    causal, window, off = case[6:9]
     q, k, v = _inputs(case, "f32", seed=1)
-    g = np.random.default_rng(2).normal(size=q.shape).astype(np.float32)
+    g = _dout(case, "f32", seed=2)
 
     def f(q_, k_, v_):
         out = ref.attention(q_, k_, v_, causal=causal, window=window,
@@ -113,6 +139,8 @@ def test_wrapper_runs_the_plain_version_on_cpu():
     case = ATT_CASES[4]
     q, k, v = (torch.from_numpy(a) for a in _inputs(case, "f32"))
     before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    wide = (torch.from_numpy(a) for a in _inputs(ATT_CASES[8], "f32"))
+    assert fa.flash_attention(*wide).shape == (1, 4, 128, 128)  # dv
     want = fa.flash_attention_plain(q, k, v, True, 64, 0)
     for got in (fa.flash_attention(q, k, v, True, 64, 0),
                 ops.flash_attention(q, k, v, True, 64, 0)):
@@ -127,10 +155,19 @@ def test_wrapper_contract_refusals():
         ops.flash_attention(q, q, q, q_offset=torch.tensor(3))
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
-    # what the kernel does not take is refused before any build or launch
-    with pytest.raises(ValueError, match="head dim"):
-        fa._check_cuda(torch.zeros((1, 2, 4, 80)), torch.zeros((1, 2, 4, 80)),
-                       torch.zeros((1, 2, 4, 80)), 0, 0)
+    # what the kernel does not take is refused before any build or launch:
+    # a (d, dv) pair outside SHAPES, and a v whose width is not the pair's
+    w96 = torch.zeros((1, 2, 4, 96))
+    with pytest.raises(ValueError, match="SHAPES"):
+        fa._check_cuda(w96, w96, w96, 0, 0)
+    w80, w128 = torch.zeros((1, 2, 4, 80)), torch.zeros((1, 2, 4, 128))
+    with pytest.raises(ValueError, match="SHAPES"):
+        fa._check_cuda(w80, w80, w128, 0, 0)
+    assert fa._check_cuda(w80, w80, w80, 0, 0)[-2:] == (80, 80)
+    w192 = torch.zeros((1, 2, 4, 192))
+    assert fa._check_cuda(w192, w192, w128, 0, 0)[-2:] == (192, 128)
+    with pytest.raises(ValueError, match="do not match"):
+        fa._check_cuda(w192, w128, w128, 0, 0)
     with pytest.raises(ValueError, match="static q_offset"):
         fa._check_cuda(q, q, q, 0, -1)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -165,7 +202,7 @@ def test_cuda_kernels_vs_plain(dtype):
     if not torch.cuda.is_available():
         pytest.skip(CUDA_REASON)
     case = ATT_CASES[4]
-    causal, window, off = case[6:]
+    causal, window, off = case[6:9]
     dev = torch.device("cuda")
     q, k, v = (_torch(a, dtype).to(dev).requires_grad_(True)
                for a in _inputs(case, dtype))
@@ -186,10 +223,10 @@ def test_cuda_kernels_vs_plain(dtype):
 
 # ---------------------------------------------------------------------------
 # CPU emulation of the bf16 tensor-core kernels (csrc/flash_attention.cu,
-# namespace tc): their tiles, skip ranges, f32 statistics in log2 units,
-# and their rounding points (P to bf16 before P.V, dS to bf16 before the dK
-# and dQ products), held against the Pallas kernel, the oracle and
-# jax.grad of the oracle at the card's tolerances.
+# namespace tc): their tiles, skip ranges, column panels, f32 statistics in
+# log2 units, and their rounding points (P to bf16 before P.V, dS to bf16
+# before the dK and dQ products), held against the Pallas kernel, the
+# oracle and jax.grad of the oracle at the card's tolerances.
 # ---------------------------------------------------------------------------
 
 LOG2E = 1.4426950408889634
@@ -201,9 +238,48 @@ EMU_IDS = [str(c) for c in EMU_CASES]
 BM, BK, DKV_BN = 64, 64, 64
 
 
-def dkv_bq(d):
+def dkv_bq(d, dv):
     """q rows per tile of the dK/dV kernel."""
-    return 64 if d <= 64 else 32
+    return 64 if d <= 64 and dv <= 64 else 32
+
+
+def panels(w):
+    """``Panels<W>`` of csrc/hopper.cuh: the column panels ``(c0, width)``
+    of a width-w tile, 64-column panels first, then at most one of 32 and
+    one of 16."""
+    out = [(c, 64) for c in range(0, w - w % 64, 64)]
+    if w % 64 >= 32:
+        out.append((w - w % 64, 32))
+    if w % 32 == 16:
+        out.append((w - 16, 16))
+    return out
+
+
+def panel_runs(w):
+    """The output products ``rs_panels`` issues over a width-w tile: one
+    over the run of 64-column panels, one for a 32- and one for a
+    16-column panel, as ``(c0, n)`` column ranges."""
+    p = panels(w)
+    runs = [(0, 64 * sum(1 for _, pw in p if pw == 64))] if w >= 64 else []
+    return runs + [(c0, pw) for c0, pw in p if pw < 64]
+
+
+def by_panels(a, b):
+    """``a @ b.T`` reduced along the width as the kernels reduce it: each
+    panel's k16 steps, the panels' sums added in panel order (S = Q K^T,
+    dP = dO V^T)."""
+    out = 0
+    for c0, pw in panels(a.shape[-1]):
+        out = out + torch.matmul(a[..., c0:c0 + pw],
+                                 b[..., c0:c0 + pw].transpose(-1, -2))
+    return out
+
+
+def into_panels(p, b):
+    """``p @ b`` with its output columns issued as ``rs_panels`` issues
+    them: one product per run, each into its own columns."""
+    return torch.cat([torch.matmul(p, b[..., c0:c0 + n])
+                      for c0, n in panel_runs(b.shape[-1])], dim=-1)
 
 
 def kv_tiles(q_first, q_last, tile, S, causal, window):
@@ -256,12 +332,12 @@ def _bf16(x):
 def emulate_fwd(q, k, v, causal, window, off):
     """The bf16 forward kernel's arithmetic → (out bf16, lse f32)."""
     B, Hq, T, d = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
+    Hkv, S, dv = k.shape[1], k.shape[2], v.shape[3]
     group = Hq // Hkv
     qf = q.float()
     kf, vf = (t.float().repeat_interleave(group, 1) for t in (k, v))
     sl2 = torch.tensor(d**-0.5, dtype=torch.float32) * LOG2E
-    out = torch.zeros((B, Hq, T, d))
+    out = torch.zeros((B, Hq, T, dv))
     lse = torch.zeros((B, Hq, T))
     bk = BK
     for q0 in range(0, T, BM):
@@ -270,11 +346,11 @@ def emulate_fwd(q, k, v, causal, window, off):
         qpos = torch.arange(q_first, q_last + 1)[:, None]
         m = torch.full((B, Hq, rows), -1e30)
         l = torch.zeros((B, Hq, rows))
-        acc = torch.zeros((B, Hq, rows, d))
+        acc = torch.zeros((B, Hq, rows, dv))
         for t in range(*kv_tiles(q_first, q_last, bk, S, causal, window)):
             k0 = t * bk
             kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
-            x = torch.matmul(qf[:, :, q0:q0 + rows], kt.transpose(-1, -2)) * sl2
+            x = by_panels(qf[:, :, q0:q0 + rows], kt) * sl2
             vis = _visible(qpos, torch.arange(k0, k0 + kt.shape[2])[None],
                            S, causal, window)
             if tile_full(q_first, q_last, k0, k0 + bk - 1, S, causal, window):
@@ -286,7 +362,7 @@ def emulate_fwd(q, k, v, causal, window, off):
             m = mx
             p = torch.exp2(x - m[..., None])
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.matmul(_bf16(p), vt)
+            acc = acc * alpha[..., None] + into_panels(_bf16(p), vt)
         out[:, :, q0:q0 + rows] = acc / torch.clamp_min(l, 1e-30)[..., None]
         lse[:, :, q0:q0 + rows] = torch.where(l > 0, m * LN2 + torch.log(l),
                                               torch.zeros_like(l))
@@ -296,7 +372,7 @@ def emulate_fwd(q, k, v, causal, window, off):
 def emulate_bwd(q, k, v, out, dout, lse, causal, window, off):
     """The bf16 backward kernels' arithmetic → (dq, dk, dv) in bf16."""
     B, Hq, T, d = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
+    Hkv, S, dv = k.shape[1], k.shape[2], v.shape[3]
     group = Hq // Hkv
     scale = torch.tensor(d**-0.5, dtype=torch.float32)
     sl2 = scale * LOG2E
@@ -315,8 +391,8 @@ def emulate_bwd(q, k, v, out, dout, lse, causal, window, off):
         for t in range(*kv_tiles(q_first, q_last, BK, S, causal, window)):
             k0 = t * BK
             kt, vt = kx[:, :, k0:k0 + BK], vx[:, :, k0:k0 + BK]
-            x = torch.matmul(qf[:, :, sl], kt.transpose(-1, -2))
-            dp = torch.matmul(gf[:, :, sl], vt.transpose(-1, -2))
+            x = by_panels(qf[:, :, sl], kt)
+            dp = by_panels(gf[:, :, sl], vt)
             p = torch.exp2(x * sl2 - lse2[:, :, sl, None])
             if not tile_full(q_first, q_last, k0, k0 + BK - 1, S, causal,
                              window):
@@ -324,26 +400,28 @@ def emulate_bwd(q, k, v, out, dout, lse, causal, window, off):
                                S, causal, window)
                 p = torch.where(vis, p, torch.zeros_like(p))
             ds = p * (dp - delta[:, :, sl, None])
-            acc = acc + torch.matmul(_bf16(ds), kt)
+            acc = acc + into_panels(_bf16(ds), kt)
         dq[:, :, sl] = acc * scale
     # dk, dv: one block per 64 keys; the group's heads, then each head's
     # visible q tiles, in order
-    bq = dkv_bq(d)
+    bq = dkv_bq(d, dv)
     kf, vf = k.float(), v.float()
-    qg, gg = (t.view(B, Hkv, group, T, d) for t in (qf, gf))
+    qg = qf.view(B, Hkv, group, T, d)
+    gg = gf.view(B, Hkv, group, T, dv)
     lg, dg = (t.view(B, Hkv, group, T) for t in (lse2, delta))
-    dk, dv = torch.zeros((B, Hkv, S, d)), torch.zeros((B, Hkv, S, d))
+    dk, dvv = torch.zeros((B, Hkv, S, d)), torch.zeros((B, Hkv, S, dv))
     for k0 in range(0, S, DKV_BN):
         keys = min(S, k0 + DKV_BN) - k0
         kt, vt = kf[:, :, k0:k0 + keys], vf[:, :, k0:k0 + keys]
         kpos = torch.arange(k0, k0 + keys)[:, None]
-        gk, gv = torch.zeros((B, Hkv, keys, d)), torch.zeros((B, Hkv, keys, d))
+        gk = torch.zeros((B, Hkv, keys, d))
+        gv = torch.zeros((B, Hkv, keys, dv))
         for g in range(group):
             for tq in q_tiles(k0, S, T, bq, causal, window, off):
                 t0 = tq * bq
                 sl = slice(t0, min(T, t0 + bq))
                 qt, gt = qg[:, :, g, sl], gg[:, :, g, sl]
-                x = torch.matmul(kt, qt.transpose(-1, -2))
+                x = by_panels(kt, qt)
                 p = torch.exp2(x * sl2 - lg[:, :, g, None, sl])
                 if not (t0 + bq <= T and tile_full(
                         off + t0, off + t0 + bq - 1, k0, k0 + DKV_BN - 1, S,
@@ -351,18 +429,18 @@ def emulate_bwd(q, k, v, out, dout, lse, causal, window, off):
                     qpos = off + torch.arange(t0, t0 + qt.shape[2])[None]
                     p = torch.where(_visible(qpos, kpos, S, causal, window),
                                     p, torch.zeros_like(p))
-                dpt = torch.matmul(vt, gt.transpose(-1, -2))
+                dpt = by_panels(vt, gt)
                 dst = p * (dpt - dg[:, :, g, None, sl])
-                gv = gv + torch.matmul(_bf16(p), gt)
-                gk = gk + torch.matmul(_bf16(dst), qt)
+                gv = gv + into_panels(_bf16(p), gt)
+                gk = gk + into_panels(_bf16(dst), qt)
         dk[:, :, k0:k0 + keys] = gk * scale
-        dv[:, :, k0:k0 + keys] = gv
-    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+        dvv[:, :, k0:k0 + keys] = gv
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dvv))
 
 
 @pytest.mark.parametrize("case", EMU_CASES, ids=EMU_IDS)
 def test_bf16_kernel_emulation_vs_pallas_and_oracle(case):
-    causal, window, off = case[6:]
+    causal, window, off = case[6:9]
     q, k, v = _inputs(case, "bf16")
     got, lse = emulate_fwd(*(_torch(a, "bf16") for a in (q, k, v)), causal,
                            window, off)
@@ -380,9 +458,9 @@ def test_bf16_kernel_emulation_vs_pallas_and_oracle(case):
 
 @pytest.mark.parametrize("case", EMU_CASES, ids=EMU_IDS)
 def test_bf16_kernel_emulation_gradients_vs_jax_grad(case):
-    causal, window, off = case[6:]
+    causal, window, off = case[6:9]
     q, k, v = _inputs(case, "bf16", seed=1)
-    g = _inputs(case, "bf16", seed=2)[0]  # dout, bf16 values
+    g = _dout(case, "bf16", seed=2)
 
     def f(q_, k_, v_):
         out = ref.attention(q_, k_, v_, causal=causal, window=window,
@@ -440,7 +518,7 @@ def test_tile_ranges_vs_element_mask(d):
                     assert rows[:, t * BK:t * BK + BK].all()
                     assert t * BK + BK <= S
         # dk/dv: q tiles of each key block
-        bq = dkv_bq(d)
+        bq = dkv_bq(d, d)
         for k0 in range(0, S, DKV_BN):
             cols = vis[:, k0:k0 + DKV_BN]
             tiles = q_tiles(k0, S, T, bq, causal, window, off)
@@ -456,3 +534,64 @@ def test_tile_ranges_vs_element_mask(d):
                                               k0 + DKV_BN - 1, S, causal,
                                               window):
                     assert cols[t0:t0 + bq].all() and k0 + DKV_BN <= S
+
+
+WIDTHS = sorted({w for pair in fa.SHAPES for w in pair})
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_panels_cover_the_width_and_start_on_their_swizzle(w):
+    """``Panels<W>``: the panels tile [0, w) in order, 64-column ones
+    first, then at most one of 32 and one of 16; in a tile of 32 or 64 rows
+    (the kernels' q and kv tiles) each starts on the repeat of its swizzle
+    (8 rows of its row bytes: 1024, 512 or 256 bytes) and every tile of one
+    width is a whole number of 1024-byte swizzle repeats, so the tiles of a
+    stage stay aligned; a k16 step never straddles two panels; and the
+    panelled products equal the plain ones."""
+    p = panels(w)
+    assert [c0 for c0, _ in p] == list(np.cumsum([0] + [pw for _, pw in p]))[:-1]
+    assert sum(pw for _, pw in p) == w
+    widths = [pw for _, pw in p]
+    assert widths == sorted(widths, reverse=True) and widths.count(32) <= 1 \
+        and widths.count(16) <= 1 and set(widths) <= {16, 32, 64}
+    for rows in (32, 64):
+        assert rows * w * 2 % 1024 == 0
+        for c0, pw in p:
+            assert (rows * 2 * c0) % (8 * pw * 2) == 0, (rows, c0, pw)
+    for k in range(w // 16):
+        assert any(c0 <= 16 * k and 16 * k + 16 <= c0 + pw for c0, pw in p)
+    runs = panel_runs(w)
+    assert sum(n for _, n in runs) == w and all(n % 8 == 0 for _, n in runs)
+    rng = np.random.default_rng(w)
+    a, b = (torch.from_numpy(rng.normal(size=(3, 40, w)).astype(np.float32))
+            for _ in range(2))
+    torch.testing.assert_close(by_panels(a, b), a @ b.transpose(-1, -2),
+                               rtol=1e-5, atol=1e-4)
+    pm = torch.from_numpy(rng.normal(size=(3, 24, 40)).astype(np.float32))
+    torch.testing.assert_close(into_panels(pm, b), pm @ b, rtol=0, atol=0)
+
+
+def _flash_widths(cfg):
+    """The (d, dv) a config passes to flash attention: none for the ssm
+    family; MLA's q/k carry qk_nope + qk_rope columns against v_dim."""
+    if not cfg.has_attention:
+        return set()
+    if cfg.mla is not None:
+        return {(cfg.mla.qk_nope + cfg.mla.qk_rope, cfg.mla.v_dim)}
+    return {(cfg.hd, cfg.hd)}
+
+
+def test_every_config_reaches_only_compiled_shapes():
+    """Every (d, dv) that a config of ``repro_torch.configs`` passes to
+    flash attention, at published and reduced size, is one the kernels
+    are compiled for; and every compiled pair but the smallest is reached
+    by some config or the reference's sweep."""
+    reached = set()
+    for arch in configs.ARCH_IDS:
+        for cfg in (configs.get(arch), configs.get_reduced(arch)):
+            shapes = _flash_widths(cfg)
+            assert shapes <= set(fa.SHAPES), (cfg.name, shapes)
+            reached |= shapes
+    assert {(80, 80), (192, 128), (48, 32)} <= reached
+    swept = {(c[5], _dv(c)) for c in EMU_CASES}
+    assert set(fa.SHAPES) - {(16, 16)} <= reached | swept

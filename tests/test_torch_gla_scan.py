@@ -113,6 +113,49 @@ def test_plain_vs_pallas_interpret_and_oracle(case, dtype):
     np.testing.assert_allclose(state.numpy(), np.asarray(p_state), atol=2e-3)
 
 
+# past one chunk: the per-step oracle's gradient is finite at any T, where
+# the XLA twin's is NaN once a chunk's gates sum below -88 (ROADMAP Queue
+# 3, F2); log_f = -|N(0, 1)| x 2 sums to ~-100 over a chunk of 64
+DEEP_CASES = [(1, 2, 130, 16, 32, True, 128), (1, 2, 384, 16, 32, True, 128),
+              (1, 2, 384, 32, 16, False, 64)]
+
+
+@pytest.mark.parametrize("case", DEEP_CASES, ids=[str(c) for c in DEEP_CASES])
+def test_plain_vs_jax_grad_of_the_per_step_oracle_past_one_chunk(case):
+    """Outputs and all five gradients of the plain version against the
+    per-step oracle ``repro.kernels.ref.gla_scan`` and ``jax.grad`` of it,
+    at T past one chunk with gates summing below -88 inside a chunk, in
+    f32: outputs within 2e-4 (the reference's f32 tolerance; the largest
+    gap seen is 2.8e-5), gradients within 1e-4 x max|ref| (the largest gap
+    seen is 6.1e-6 x max|ref|, float32 rounding of two summation orders)."""
+    B, H, T, dk, dv, norm, chunk = case
+    rng = np.random.default_rng(5)
+    q, k = (rng.normal(size=(B, H, T, dk)).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=(B, H, T, dv)).astype(np.float32)
+    lf = (-np.abs(rng.normal(size=(B, H, T))) * 2.0).astype(np.float32)
+    ig = np.abs(rng.normal(size=(B, H, T))).astype(np.float32)
+    sums = np.add.reduceat(lf, np.arange(0, T, chunk), axis=-1)
+    assert sums.min() < -88  # what makes the XLA twin's gradient NaN
+    g = rng.normal(size=(B, H, T, dv)).astype(np.float32)
+    arrays = (q, k, v, lf, ig)
+
+    def f(*a):
+        return jnp.sum(ref.gla_scan(*a, normalize=norm) * g)
+
+    jarr = [jnp.asarray(a) for a in arrays]
+    want_out = np.asarray(ref.gla_scan(*jarr, normalize=norm))
+    want = jax.grad(f, argnums=(0, 1, 2, 3, 4))(*jarr)
+    ts = [_torch(a).requires_grad_(True) for a in arrays]
+    out, _ = gs.gla_scan_plain(*ts, norm, chunk)
+    np.testing.assert_allclose(out.detach().numpy(), want_out, atol=2e-4)
+    got = torch.autograd.grad(out, ts, torch.from_numpy(g))
+    for name, a, b in zip(("q", "k", "v", "log_f", "i_gate"), got, want):
+        b = np.asarray(b)
+        assert np.isfinite(b).all() and torch.isfinite(a).all(), name
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-4 * np.abs(b).max(),
+                                   err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("case", GRAD_CASES, ids=[str(c) for c in GRAD_CASES])
 def test_plain_gradients_vs_jax_grad_of_the_xla_twin(case):
     norm, chunk = case[5:]

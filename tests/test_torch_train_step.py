@@ -12,9 +12,13 @@ mLSTM blocks and an sLSTM block at width 64) is held to the same bounds:
 xla mode against the reference, first-step gradients against ``jax.grad``,
 fmi against xla, int8 trains, the launcher trains.  Its sequences stay
 within one 128-step chunk, where the reference's gradient is finite (see
-tests/test_torch_ssm.py)."""
+tests/test_torch_ssm.py); past one chunk the scan's gradients are held
+against ``jax.grad`` of the per-step oracle instead, in
+tests/test_torch_gla_scan.py
+(``test_plain_vs_jax_grad_of_the_per_step_oracle_past_one_chunk``)."""
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -269,6 +273,64 @@ def test_xlstm_first_step_gradients_match_jax_grad(xlstm_tree):
         ref_g = _ref_leaf(want, n)
         np.testing.assert_allclose(g.numpy(), ref_g, err_msg=n,
                                    atol=2e-5 * max(1.0, np.abs(ref_g).max()))
+
+
+def _block(name: str) -> str:
+    """The block a parameter belongs to: ``layers.<g>.mlstm.<i>``,
+    ``layers.<g>.slstm``, else its first component."""
+    m = re.match(r"(layers\.\d+\.(?:mlstm\.\d+|slstm))", name)
+    return m[1] if m else name.split(".")[0]
+
+
+def _block_gaps(a: dict, b: dict) -> dict:
+    """||a - b|| / ||b|| over each block's parameters."""
+    num, den = {}, {}
+    for n in a:
+        k = _block(n)
+        num[k] = num.get(k, 0.0) + float(((a[n] - b[n]) ** 2).sum())
+        den[k] = den.get(k, 0.0) + float((b[n] ** 2).sum())
+    return {k: (num[k] / den[k]) ** 0.5 for k in num}
+
+
+def test_xlstm_bf16_first_step_gradients_per_block(xlstm_tree):
+    """bf16 compute, the reduced xlstm config, one chunk (T 64): the
+    port's first-step gradients (plain scan) against ``jax.grad`` of the
+    reference in bf16, block by block.  bf16 gradients of this model hold
+    only to ~10-30%: the reference's own bf16 gradients differ from its
+    f32 ones by 3.5e-2 (final norm) to 1.9e-1 (first mLSTM) of each
+    block's norm.  The port's differ from the reference's bf16 ones by
+    2.2e-2 to 1.9e-1, less than that in every block (bound: 0.25 of the
+    block's norm, and no more than the reference's own bf16 gap), and the
+    blocks' gradient norms agree within 1.8% (bound 5%).  So at this size
+    the port's bf16 gradients are as close to the reference's as bf16
+    allows; whether that holds at full depth past one chunk, where the
+    scan routes' gradients spread (ROADMAP Queue 3, F1), this test
+    cannot show."""
+    grads = {}
+    for dt in ("float32", "bfloat16"):
+        rcfg = rconfigs.get_reduced("xlstm-125m", **X_KW, dtype=dt)
+        pcfg = pconfigs.get_reduced("xlstm-125m", **X_KW, dtype=dt)
+        b = rdata.synthetic_batch(rdata.DataConfig(), rcfg, 4, 64, 0)
+        jb = jax.tree.map(jnp.asarray, b)
+        want = jax.grad(lambda p: rts._loss(p, rcfg, NO_SHARD, jb)[0])(
+            jax.tree.map(jnp.asarray, xlstm_tree))
+        model = plm.params_from_reference(xlstm_tree, pcfg, device="cpu")
+        tb = {k: torch.from_numpy(v) for k, v in b.items()}
+        _, _, got = pts._grad_accum(model, pcfg, None, tb, 1)
+        grads[dt] = ({n: g.float().numpy() for n, g in got.items()},
+                     {n: _ref_leaf(want, n).astype(np.float32) for n in got})
+    port16, ref16 = grads["bfloat16"]
+    _, ref32 = grads["float32"]
+    gap = _block_gaps(port16, ref16)
+    own = _block_gaps(ref16, ref32)
+    assert set(gap) == {"embed", "final_norm", "layers.0.mlstm.0",
+                        "layers.0.mlstm.1", "layers.0.mlstm.2",
+                        "layers.0.slstm"}
+    for k in gap:
+        assert gap[k] <= 0.25 and gap[k] <= own[k], (k, gap[k], own[k])
+        norm = lambda g: sum(float((g[n] ** 2).sum()) for n in g  # noqa: E731
+                             if _block(n) == k) ** 0.5
+        assert abs(norm(port16) / norm(ref16) - 1) <= 0.05, k
 
 
 @pytest.mark.parametrize("world", [2, 4])
