@@ -61,6 +61,7 @@ import argparse  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
@@ -170,6 +171,13 @@ GLA_DECAY, GLA_WEAK_DECAY = 0.5, 0.01
 BF16_ULP = 2.0**-8
 # the serve phase's whole pool seen as pages: 28 layers x 4 ranks x 64 pages
 PAGE_POOL = (28 * WORLD * PAGES_PER_RANK, PS, 4, 128)
+# the page quantizers' sweep, each shape held bit-exact on the card and on
+# the host: head widths of the zoo, pages of 1 to 16 tokens and 1 to 8
+# heads, odd page counts; and pages (512 KB in f32, 256 KB in bf16) too
+# large for a block's shared memory, which the kernel reads twice instead
+PAGE_SWEEP = [(n, ps, H, d) for d in (8, 48, 80, 128, 192)
+              for n, ps, H in ((7, 1, 1), (5, 8, 4), (3, 16, 8))] + [
+                  (3, 128, 8, 128)]
 # the paged kernel's long-context shape: 4 rows of these lengths (7,620
 # tokens; 512 + 313 + 128 + 1 pages of 8), pools of 1024 pages a rank
 LONG_LENGTHS, LONG_PAGES_PER_RANK = (4096, 2500, 1023, 1), 1024
@@ -859,7 +867,7 @@ def block_rel_err(a, b, rows: int = 64) -> float:
 
 _MANGLED = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16",
             "13__nv_fp8_e4m3": "e4m3"}
-_ARG = r"f|a|13__nv_bfloat16|13__nv_fp8_e4m3|Li(\d+)E"
+_ARG = r"f|a|13__nv_bfloat16|13__nv_fp8_e4m3|Li(\d+)E|Lb([01])E"
 
 
 def ptxas_kernel(line: str) -> str:
@@ -869,7 +877,7 @@ def ptxas_kernel(line: str) -> str:
     m = re.search(rf"\d([a-z][a-z_]*_kernel)(I(?:{_ARG})+E)?", line)
     if m is None:
         return line.strip()[-60:]
-    args = [t[1] or _MANGLED[t[0]]
+    args = [t[1] or {"0": "false", "1": "true"}.get(t[2]) or _MANGLED[t[0]]
             for t in re.findall(rf"({_ARG})", m[2] or "")]
     return m[1] + (f"<{', '.join(args)}>" if args else "")
 
@@ -1778,6 +1786,133 @@ def gla_bound(case, backward: bool) -> tuple[float, str]:
     return bound(nbytes, flops * B * H * nc, BF16_FLOPS)
 
 
+def page_pool(shape, dt, g, dev) -> torch.Tensor:
+    """A pool ``[n_pages, ps, H, d]`` of N(0, 9) values in ``dt`` with a
+    zero (page 0, last head) and, where it has two pages, exact half-step
+    ties in (last page, head 0): its max-abs is 127, so its scale is 1 and
+    ``x / scale`` lands on k + 0.5 (round half to even)."""
+    x = torch.randn(shape, generator=g) * 3
+    x[0, :, -1] = 0
+    if shape[0] > 1:
+        n = shape[1] * shape[3]
+        ties = torch.cat([torch.tensor([127.0]), torch.arange(-127, 127) + 0.5])
+        x[-1, :, 0] = ties.repeat(-(-n // len(ties)))[:n].view(shape[1], shape[3])
+    return x.to(dt).to(dev)
+
+
+def page_bit_exact(qz, x) -> bool:
+    """``quantize_page`` and ``dequantize_page`` (f32 and bf16 out) on the
+    card pool ``x``, bit for bit against the plain version on the card and
+    on the host; dequantize also from an int8 view at byte offset 1."""
+    q1, s1 = qz.quantize_page(x)
+    q2, s2 = qz.quantize_page_plain(x)
+    q3, s3 = qz.quantize_page_plain(x.cpu())
+    ok = (torch.equal(q1, q2) and torch.equal(s1, s2)
+          and torch.equal(q1.cpu(), q3) and torch.equal(s1.cpu(), s3))
+    buf = torch.empty(q1.numel() + 1, dtype=torch.int8, device=x.device)
+    q_off = buf[1:].view(q1.shape)
+    q_off.copy_(q1)
+    for out_dt in (torch.float32, torch.bfloat16):
+        want = qz.dequantize_page_plain(q2, s2, out_dt)
+        for qq in (q1, q_off):
+            d1 = qz.dequantize_page(qq, s1, out_dt)
+            ok = ok and torch.equal(d1, want)
+        ok = ok and torch.equal(d1.cpu(), qz.dequantize_page_plain(q3, s3, out_dt))
+    return ok
+
+
+def phase_page_quantizers(qz, g, dev):
+    """The page quantizers over ``PAGE_SWEEP`` in f32 and bf16, from
+    aligned pools and from pools at an element offset of 1 (the kernels'
+    one-element units), bit-exact on the card and on the host; then timed
+    on the serve phase's pool seen as pages (``PAGE_POOL``) in f32 and bf16.
+    Returns the f32 times and bounds (quantize, dequantize), and the
+    launches of the checks (no path calls the pair)."""
+    qz.quantize_page.launches = 0
+    qz.dequantize_page.launches = 0
+    plans, bad = set(), []
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in PAGE_SWEEP + [PAGE_POOL]:
+            x = page_pool(shape, dt, g, dev)
+            buf = torch.empty(x.numel() + 1, dtype=dt, device=dev)
+            x_off = buf[1:].view(shape)  # contiguous, 2 or 4 bytes off 16
+            x_off.copy_(x)
+            for xx in (x, x_off):
+                q = torch.empty(shape, dtype=torch.int8, device=dev)
+                plan = qz.page_plan("quantize", shape, dt, xx.data_ptr(),
+                                    q.data_ptr())
+                plans.add((str(dt)[6:], plan["vec"], plan["staged"]))
+                if not page_bit_exact(qz, xx):
+                    bad.append((shape, str(dt), xx.data_ptr() % 16, plan))
+            del x, buf, x_off
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"quantize/dequantize_page not bit-exact with "
+                             f"the plain version (card and host): {bad}")
+    for dt in ("float32", "bfloat16"):
+        if {v for d_, v, _ in plans if d_ == dt} != {1, 16 // (
+                4 if dt == "float32" else 2)} or {s_ for d_, _, s_ in plans
+                                                  if d_ == dt} != {True, False}:
+            raise AssertionError(f"the sweep missed a kernel variant: {plans}")
+    launches = {"quantize_page": qz.quantize_page.launches,
+                "dequantize_page": qz.dequantize_page.launches}
+    log("train_kernel", f"quantize_page/dequantize_page bit-exact with plain "
+                        f"on the card and on the host over "
+                        f"{len(PAGE_SWEEP) + 1} shapes (d 8-192, ps 1-128, "
+                        f"H 1-8, odd page counts, a zero (page, head), "
+                        f"half-step ties) x f32/bf16 pools, aligned and at "
+                        f"an element offset of 1, f32 and bf16 out, "
+                        f"dequantize also from int8 at a byte offset of 1; "
+                        f"kernel variants (dtype, vec, staged) "
+                        f"{sorted(plans)}")
+    elems = math.prod(PAGE_POOL)
+    n_scales = PAGE_POOL[0] * PAGE_POOL[2]
+    times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        item = 4 if dt == torch.float32 else 2
+        xq = (torch.randn(PAGE_POOL, generator=g) * 3).to(dt).to(dev)
+        qq, sq = qz.quantize_page(xq)
+        qp = {name: time_ms(fn, 20) for name, fn in (
+            ("plain", lambda: qz.quantize_page_plain(xq)),
+            ("kernel", lambda: qz.quantize_page(xq)),
+            ("kernel2", lambda: qz.quantize_page(xq)),
+            ("plain2", lambda: qz.quantize_page_plain(xq)))}
+        dp = {name: time_ms(fn, 20) for name, fn in (
+            ("plain", lambda: qz.dequantize_page_plain(qq, sq, dt)),
+            ("kernel", lambda: qz.dequantize_page(qq, sq, dt)),
+            ("kernel2", lambda: qz.dequantize_page(qq, sq, dt)),
+            ("plain2", lambda: qz.dequantize_page_plain(qq, sq, dt)))}
+        # each pass reads its input once and writes its output once: the
+        # same bytes both ways; quantize does ~3 operations an element
+        # (abs-max, divide, round), dequantize 1
+        bnd, by = bound(item * elems + elems + 4 * n_scales, 3.0 * elems,
+                        F32_FLOPS)
+        times[dt] = (qp, dp, bnd, by,
+                     bound(item * elems + elems + 4 * n_scales, 1.0 * elems,
+                           F32_FLOPS))
+        pool_plan = (qz.page_plan("quantize", PAGE_POOL, dt, xq.data_ptr(),
+                                  qq.data_ptr()),
+                     qz.page_plan("dequantize", PAGE_POOL, dt, qq.data_ptr(),
+                                  xq.data_ptr()))
+        log("train_kernel", f"page quantizers on {PAGE_POOL} {str(dt)[6:]} "
+                            f"(plans {pool_plan}), device ms: quantize "
+                            f"kernel {qp['kernel'][0]:.6f}/"
+                            f"{qp['kernel2'][0]:.6f}, plain "
+                            f"{qp['plain'][0]:.6f}/{qp['plain2'][0]:.6f}; "
+                            f"dequantize ({str(dt)[6:]} out) kernel "
+                            f"{dp['kernel'][0]:.6f}/{dp['kernel2'][0]:.6f}, "
+                            f"plain {dp['plain'][0]:.6f}/"
+                            f"{dp['plain2'][0]:.6f}; bound {bnd:.6f} ({by}, "
+                            f"{(item + 1) * elems + 4 * n_scales} bytes), "
+                            f"share of bound {bnd / min(qp['kernel'][0], qp['kernel2'][0]):.3f}"
+                            f" / {bnd / min(dp['kernel'][0], dp['kernel2'][0]):.3f}")
+        del xq, qq, sq
+        torch.cuda.empty_cache()
+    log("train_kernel", f"launches of the page quantizers' checks {launches} "
+                        f"(no path calls them)")
+    return times[torch.float32], launches
+
+
 def phase_ssm_kernel(gs, qz, seed: int, dev) -> tuple[list[dict], dict]:
     """gla_scan forward/backward over the reference's sweep and at the two
     model shapes, and the page quantizers on the serve phase's pool, on
@@ -1918,60 +2053,8 @@ def phase_ssm_kernel(gs, qz, seed: int, dev) -> tuple[list[dict], dict]:
     del ins, leaves, out, dout
     torch.cuda.empty_cache()
 
-    # the page quantizers on the serve phase's pool seen as pages
-    qz.quantize_page.launches = 0
-    qz.dequantize_page.launches = 0
-    for dt in (torch.float32, torch.bfloat16):
-        x = (torch.randn(PAGE_POOL, generator=g) * 3).to(dt).to(dev)
-        x[0, :, 1] = 0  # a zero (page, head): scale 1, exact zeros
-        q1, s1 = qz.quantize_page(x)
-        q2, s2 = qz.quantize_page_plain(x)
-        same = torch.equal(q1, q2) and torch.equal(s1, s2)
-        q3, s3 = qz.quantize_page_plain(x.cpu())
-        same = same and torch.equal(q1.cpu(), q3) and torch.equal(s1.cpu(), s3)
-        for out_dt in (torch.float32, torch.bfloat16):
-            same = same and torch.equal(qz.dequantize_page(q1, s1, out_dt),
-                                        qz.dequantize_page_plain(q2, s2, out_dt))
-        torch.cuda.synchronize()
-        if not same or float(s1[0, 1]) != 1.0 or bool((q1[0, :, 1] != 0).any()):
-            raise AssertionError(f"quantize/dequantize_page {dt} on "
-                                 f"{PAGE_POOL}: not bit-exact with the plain "
-                                 f"version (card and host)")
-    page_launches = {"quantize_page": qz.quantize_page.launches,
-                     "dequantize_page": qz.dequantize_page.launches}
-    xq = (torch.randn(PAGE_POOL, generator=g) * 3).to(dev)
-    qq, sq = qz.quantize_page(xq)
-    qp_times = {name: time_ms(fn, 20) for name, fn in (
-        ("plain", lambda: qz.quantize_page_plain(xq)),
-        ("kernel", lambda: qz.quantize_page(xq)),
-        ("kernel2", lambda: qz.quantize_page(xq)),
-        ("plain2", lambda: qz.quantize_page_plain(xq)))}
-    dp_times = {name: time_ms(fn, 20) for name, fn in (
-        ("plain", lambda: qz.dequantize_page_plain(qq, sq)),
-        ("kernel", lambda: qz.dequantize_page(qq, sq)),
-        ("kernel2", lambda: qz.dequantize_page(qq, sq)),
-        ("plain2", lambda: qz.dequantize_page_plain(qq, sq)))}
-    elems = xq.numel()
-    n_scales = PAGE_POOL[0] * PAGE_POOL[2]
-    qp_bound, qp_by = bound(4 * elems + elems + 4 * n_scales, 3.0 * elems,
-                            F32_FLOPS)
-    dp_bound, dp_by = bound(elems + 4 * n_scales + 4 * elems, 1.0 * elems,
-                            F32_FLOPS)
-    log("train_kernel", f"quantize_page/dequantize_page bit-exact with plain "
-                        f"on the card and on the host over {PAGE_POOL} (f32 "
-                        f"and bf16 pages, f32 and bf16 out, a zero page); f32, "
-                        f"device ms: quantize kernel "
-                        f"{qp_times['kernel'][0]:.6f}/{qp_times['kernel2'][0]:.6f}"
-                        f", plain {qp_times['plain'][0]:.6f}/"
-                        f"{qp_times['plain2'][0]:.6f}, bound {qp_bound:.6f} "
-                        f"({qp_by}); dequantize kernel "
-                        f"{dp_times['kernel'][0]:.6f}/{dp_times['kernel2'][0]:.6f}"
-                        f", plain {dp_times['plain'][0]:.6f}/"
-                        f"{dp_times['plain2'][0]:.6f}, bound {dp_bound:.6f} "
-                        f"({dp_by}); launches of the bit-exact checks "
-                        f"{page_launches} (no path calls them)")
-    del xq, qq, sq
-    torch.cuda.empty_cache()
+    (qp_times, dp_times, qp_bound, qp_by, (dp_bound, dp_by)), page_launches = (
+        phase_page_quantizers(qz, g, dev))
 
     def rec(name, source, err, times, bnd, by, ms=None, plain=None):
         if ms is None:

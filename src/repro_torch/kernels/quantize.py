@@ -20,6 +20,10 @@ KV cache quantizes with its own write-once policy).
   ``q = clip(rint(x / scale), -127, 127)`` as int8 (an IEEE division and
   round-half-to-even), and ``x' = q * scale``; the page pair the same
   over each ``[ps, d]`` block of a page and head.
+* :func:`page_plan` — how the page kernels cut a pool: elements a unit
+  (16 bytes' worth, or 1 where ``d`` or an address does not allow it),
+  pages a block, and whether a quantize block stages its pages in shared
+  memory.  The launchers of ``csrc/quantize.cu`` check what it gives them.
 
 >>> x = torch.tensor([[0.5, -1.0, 0.25, 0.0]])
 >>> q, s = quantize_blockwise(x, block=2)
@@ -72,9 +76,11 @@ def _lib():
         lib.quantize_blockwise_launch.restype = i
         lib.dequantize_blockwise_launch.argtypes = [p, p, p, i64, i64, i, i, p]
         lib.dequantize_blockwise_launch.restype = i
-        lib.quantize_page_launch.argtypes = [p, p, p, i64, i, i, i, i, p]
+        lib.quantize_page_launch.argtypes = [p, p, p, i64, i, i, i, i, i, i,
+                                             i, p]
         lib.quantize_page_launch.restype = i
-        lib.dequantize_page_launch.argtypes = [p, p, p, i64, i, i, i, i, p]
+        lib.dequantize_page_launch.argtypes = [p, p, p, i64, i, i, i, i, i, i,
+                                               p]
         lib.dequantize_page_launch.restype = i
     return lib
 
@@ -157,6 +163,48 @@ def _pages(name, t):
     return t.shape
 
 
+#: Warps of a page-kernel block (``kWarps`` in ``csrc/quantize.cu``): a
+#: quantize block takes pages enough for one (page, head) a warp.
+PAGE_WARPS = 8
+#: Bytes of input a quantize block takes at least (whole pages; at least
+#: one), and int8 bytes a dequantize block takes.
+PAGE_BLOCK_BYTES = 16384
+#: The most a quantize block stages in shared memory (``kMaxStage`` in
+#: ``csrc/quantize.cu``); a larger page is read twice from device memory.
+PAGE_MAX_STAGE = 200 * 1024
+
+
+def page_plan(kind: str, shape, dtype, *ptrs: int) -> dict:
+    """How the page kernels cut ``[n_pages, ps, H, d]``.  ``"quantize"``
+    (``dtype`` the input's, ``ptrs`` the input's and the int8 output's
+    addresses): ``vec`` elements a unit (16 bytes: 4 f32 or 8 bf16; 1 where
+    ``d`` is not a multiple or an address is not aligned), ``ppb`` pages a
+    block (one (page, head) a warp, and at least ``PAGE_BLOCK_BYTES``) and
+    ``staged`` (they fit in shared memory).  ``"dequantize"`` (``dtype``
+    the output's, ``ptrs`` the int8 input's and the output's): ``unit``
+    int8 a thread at a time, so that each writes one 16-byte store (4 for
+    f32, 8 for bf16; else 1), and ``ppb``."""
+    n_pages, ps, H, d = (int(v) for v in shape)
+    page = max(1, ps * H * d)
+    item = torch.empty((), dtype=dtype).element_size()
+    if kind == "quantize":
+        vec = 16 // item
+        if d % vec or ptrs[0] % 16 or ptrs[1] % vec:
+            vec = 1
+        ppb = max(-(-PAGE_WARPS // max(1, H)),
+                  PAGE_BLOCK_BYTES // (page * item))
+        ppb = max(1, min(n_pages, ppb, PAGE_MAX_STAGE // (page * item)))
+        return dict(vec=vec, ppb=ppb,
+                    staged=ppb * page * item <= PAGE_MAX_STAGE)
+    if kind == "dequantize":
+        unit = 16 // item
+        if d % unit or ptrs[0] % unit or ptrs[1] % 16:
+            unit = 1
+        return dict(unit=unit,
+                    ppb=max(1, min(n_pages, PAGE_BLOCK_BYTES // page)))
+    raise ValueError(f"kind is 'quantize' or 'dequantize', not {kind!r}")
+
+
 def quantize_page(x):
     """KV pages ``[n_pages, ps, H, d]`` f32/bf16 → (int8 pages, f32 scales
     ``[n_pages, H]``).  CPU: plain version; CUDA: the kernel."""
@@ -166,10 +214,12 @@ def quantize_page(x):
     n_pages, ps, H, d = _pages("quantize_page", x)
     q = empty_for_kernel(x.shape, torch.int8, x.device)
     scale = empty_for_kernel((n_pages, H), torch.float32, x.device)
+    plan = page_plan("quantize", x.shape, x.dtype, x.data_ptr(), q.data_ptr())
     with torch.cuda.device(x.device):
         err = _lib().quantize_page_launch(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), n_pages, ps, H, d,
-            _IN_CODE[x.dtype], stream_of(x))
+            _IN_CODE[x.dtype], plan["vec"], plan["ppb"], int(plan["staged"]),
+            stream_of(x))
     if err != 0:
         raise RuntimeError(f"quantize_page launch failed: cudaError_t {err}")
     quantize_page.launches += 1
@@ -190,10 +240,12 @@ def dequantize_page(q, scale, out_dtype=torch.float32):
         raise ValueError(f"scale must be {(n_pages, H)} on {q.device}, got "
                          f"{tuple(scale.shape)} on {scale.device}")
     out = empty_for_kernel(q.shape, out_dtype, q.device)
+    plan = page_plan("dequantize", q.shape, out_dtype, q.data_ptr(),
+                     out.data_ptr())
     with torch.cuda.device(q.device):
         err = _lib().dequantize_page_launch(
             q.data_ptr(), scale.data_ptr(), out.data_ptr(), n_pages, ps, H, d,
-            _IN_CODE[out_dtype], stream_of(q))
+            _IN_CODE[out_dtype], plan["unit"], plan["ppb"], stream_of(q))
     if err != 0:
         raise RuntimeError(f"dequantize_page launch failed: cudaError_t {err}")
     dequantize_page.launches += 1

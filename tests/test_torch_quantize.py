@@ -3,9 +3,13 @@ interpret mode and its ``repro.kernels.ref`` oracles, with the sweep and
 bounds of tests/test_kernels.py: blockwise bit-exact in f32, |Δq| ≤ 1 on
 under 1% of entries in bf16, scales within rtol 1e-6, the round-trip bound,
 exact zero blocks; per-(page, head) bit-exact on the reference's page
-shapes (tests/test_kernels.py:351) in f32 and bf16, zero pages exact.  The CUDA kernels run only on the card
+shapes (tests/test_kernels.py:351) and the zoo's head widths in f32 and
+bf16, zero pages and half-step ties exact.  How the page kernels cut a pool
+(``page_plan``) and the index arithmetic of their loops (each unit of a
+(page, head) visited once, the dequantize walk's carried digits) are
+checked here in Python.  The CUDA kernels run only on the card
 (``chip_smoke.py`` holds them bit-exact against the plain versions there);
-their test here skips."""
+their tests here skip."""
 
 import os
 
@@ -26,6 +30,10 @@ from repro_torch.kernels import quantize as qz  # noqa: E402
 
 SWEEP = [(8, 1024, 256), (3, 512, 128), (16, 4096, 256), (1, 256, 256)]
 PAGE_SHAPES = [(6, 8, 2, 16), (3, 4, 4, 8)]  # tests/test_kernels.py:351
+# head widths of the zoo (48, 80, 192), one- and 16-token pages, 1 to 8
+# heads, odd page counts
+PAGE_SWEEP = [(3, 1, 1, 48), (5, 16, 8, 80), (3, 16, 1, 192), (7, 1, 8, 192),
+              (5, 16, 4, 48)]
 CUDA_REASON = "needs an NVIDIA GPU; chip_smoke.py covers it"
 
 
@@ -171,6 +179,39 @@ def test_page_plain_bit_exact_vs_pallas_interpret_and_oracle(shape, dtype):
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("shape", PAGE_SWEEP)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_page_sweep_plain_bit_exact_vs_oracle_and_pallas_interpret(shape,
+                                                                   dtype):
+    """Bit-exact with the oracle (q, scales, dequantized in f32 and bf16).
+    Against the Pallas kernel: q equal in every (page, head) whose scale
+    equals the oracle's; where the kernel's scale is one ulp off (as in 2
+    to 5 (page, head)s of most of these shapes), q within 1 there (it
+    differs in one element of (5, 16, 8, 80) and of (5, 16, 4, 48) in
+    bf16)."""
+    xt, xj = _pages(shape, dtype)
+    q1, s1 = qz.quantize_page_plain(xt)
+    q2, s2 = ref.quantize_page(xj)
+    np.testing.assert_array_equal(q1.numpy(), np.asarray(q2))
+    np.testing.assert_array_equal(s1.numpy(), np.asarray(s2))
+    for out_t, out_j in ((torch.float32, jnp.float32),
+                         (torch.bfloat16, jnp.bfloat16)):
+        np.testing.assert_array_equal(
+            qz.dequantize_page_plain(q1, s1, out_t).float().numpy(),
+            np.asarray(ref.dequantize_page(q2, s2, out_j), np.float32))
+    q3, s3 = (np.asarray(a) for a in qp_pallas(xj, interpret=True))
+    np.testing.assert_allclose(s1.numpy(), s3, rtol=1e-6)
+    same = (s1.numpy() == s3)[:, None, :, None]
+    dq = np.abs(q1.numpy().astype(np.int32) - q3)
+    assert (dq[np.broadcast_to(same, dq.shape)] == 0).all()
+    assert dq.max() <= 1
+    np.testing.assert_allclose(
+        qz.dequantize_page_plain(q1, s1).numpy(),
+        np.asarray(dqp_pallas(jnp.asarray(q3), jnp.asarray(s3),
+                              interpret=True)),
+        rtol=1e-6, atol=float(s3.max()) * 1.01)
+
+
 def test_page_zero_pool_is_exact_and_the_wrapper_runs_plain_on_cpu():
     x = torch.zeros((2, 4, 2, 8))
     before = (qz.quantize_page.launches, qz.dequantize_page.launches)
@@ -196,3 +237,164 @@ def test_cuda_page_kernels_bit_exact_vs_plain(dtype):
     assert torch.equal(q1, q2) and torch.equal(s1, s2)
     assert torch.equal(qz.dequantize_page(q1, s1),
                        qz.dequantize_page_plain(q2, s2))
+
+
+def test_page_half_step_ties_round_to_even():
+    # a (page, head) whose max-abs is 127 has scale 1: x / 1 lands on ties
+    ties = np.concatenate([[127.0], np.arange(-127, 127) + 0.5])
+    a = np.random.default_rng(6).normal(size=(3, 16, 2, 16)).astype(np.float32)
+    a[1, :, 0] = np.resize(ties, 256).reshape(16, 16)
+    q, s = qz.quantize_page_plain(torch.from_numpy(a))
+    want_q, want_s = ref.quantize_page(jnp.asarray(a))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(want_s))
+    assert float(s[1, 0]) == 1.0
+    assert q[1, 0, 0, :4].tolist() == [127, -126, -126, -124]
+
+
+def _ptr(offset: int) -> int:
+    return 0x7F0000000000 + offset
+
+
+@pytest.mark.parametrize("shape,dtype,offset,want", [
+    ((7168, 8, 4, 128), torch.float32, 0, dict(vec=4, ppb=2, staged=True)),
+    ((7168, 8, 4, 128), torch.bfloat16, 0, dict(vec=8, ppb=2, staged=True)),
+    ((7168, 8, 4, 128), torch.float32, 4, dict(vec=1, ppb=2, staged=True)),
+    ((7168, 8, 4, 128), torch.bfloat16, 2, dict(vec=1, ppb=2, staged=True)),
+    ((64, 16, 1, 128), torch.bfloat16, 0, dict(vec=8, ppb=8, staged=True)),
+    ((3, 16, 8, 192), torch.float32, 0, dict(vec=4, ppb=1, staged=True)),
+    ((9, 64, 1, 192), torch.float32, 0, dict(vec=4, ppb=4, staged=True)),
+    ((3, 128, 8, 128), torch.float32, 0, dict(vec=4, ppb=1, staged=False)),
+    ((3, 128, 8, 128), torch.bfloat16, 0, dict(vec=8, ppb=1, staged=False)),
+    ((7, 1, 1, 8), torch.float32, 0, dict(vec=4, ppb=7, staged=True)),
+    ((5, 8, 4, 6), torch.float32, 0, dict(vec=1, ppb=5, staged=True)),
+    ((5, 8, 4, 12), torch.bfloat16, 0, dict(vec=1, ppb=5, staged=True)),
+])
+def test_quantize_page_plan(shape, dtype, offset, want):
+    """Units of 16 bytes where ``d`` and the input's address allow them;
+    whole pages a block, one (page, head) a warp and at least 16 KB; staged
+    while they fit 200 KB."""
+    assert qz.page_plan("quantize", shape, dtype, _ptr(offset),
+                        _ptr(0)) == want
+
+
+@pytest.mark.parametrize("shape,dtype,offset,want", [
+    ((7168, 8, 4, 128), torch.float32, 0, dict(unit=4, ppb=4)),
+    ((7168, 8, 4, 128), torch.bfloat16, 0, dict(unit=8, ppb=4)),
+    ((7168, 8, 4, 128), torch.float32, 1, dict(unit=1, ppb=4)),
+    ((7168, 8, 4, 128), torch.bfloat16, 4, dict(unit=1, ppb=4)),
+    ((7, 1, 1, 8), torch.bfloat16, 0, dict(unit=8, ppb=7)),
+    ((5, 8, 4, 6), torch.float32, 0, dict(unit=1, ppb=5)),
+    ((2, 1, 8192, 16), torch.float32, 0, dict(unit=4, ppb=1)),
+])
+def test_dequantize_page_plan(shape, dtype, offset, want):
+    """4 (f32 out) or 8 (bf16 out) int8 a thread at a time, one 16-byte
+    store each, where ``d`` and the int8 address allow them; 16 KB of int8
+    a block."""
+    assert qz.page_plan("dequantize", shape, dtype, _ptr(offset),
+                        _ptr(0)) == want
+
+
+def test_page_plan_refuses_an_unknown_kind():
+    with pytest.raises(ValueError, match="quantize"):
+        qz.page_plan("scale", (1, 1, 1, 8), torch.float32, 0, 0)
+
+
+THREADS, WARPS = 256, 8  # kThreads, kWarps of csrc/quantize.cu
+
+
+def _quantize_tasks(np_, ps, H, nv):
+    """The units (page, row, head, unit in row) each warp of one quantize
+    block reads, as ``quantize_page_kernel`` walks them: tasks (page, head,
+    row share j of R), lanes over rows and units as ``Lanes``."""
+    heads = np_ * H
+    R = 1 if heads >= WARPS else WARPS // heads
+    seen = []
+    for warp in range(WARPS):
+        tasks = (range(warp, heads, WARPS) if R == 1 else
+                 [warp // R] if warp // R < heads else [])
+        for ph in tasks:
+            pb, h, j = ph // H, ph % H, (0 if R == 1 else warp % R)
+            for lane in range(32):
+                rr, c0, cstep, rpw = ((0, lane, 32, 1) if nv >= 32 else
+                                      (lane // nv, lane % nv, nv, 32 // nv))
+                if rr >= rpw:
+                    continue
+                for r in range(j + R * rr, ps, R * rpw):
+                    for c in range(c0, nv, cstep):
+                        seen.append((pb, r, h, c))
+    return seen
+
+
+@pytest.mark.parametrize("np_,ps,H,nv", [
+    (1, 8, 4, 32), (2, 8, 4, 16), (1, 16, 8, 48), (5, 8, 4, 2), (7, 1, 1, 12),
+    (1, 16, 1, 20), (3, 16, 8, 10), (512, 1, 1, 2), (1, 128, 8, 32),
+    (2, 3, 3, 33)])
+def test_quantize_tasks_visit_every_unit_once(np_, ps, H, nv):
+    seen = _quantize_tasks(np_, ps, H, nv)
+    assert len(seen) == len(set(seen)) == np_ * ps * H * nv
+
+
+def _dequantize_walk(np_, ps, H, nv):
+    """(page, head) of each unit of one dequantize block, as
+    ``dequantize_page_kernel``'s carried digits give them."""
+    got = {}
+    dc, dseg = THREADS % nv, THREADS // nv
+    dh, drows = dseg % H, dseg // H
+    dr, dpb = drows % ps, drows // ps
+    for t in range(THREADS):
+        c, seg = t % nv, t // nv
+        h, rows = seg % H, seg // H
+        r, pb = rows % ps, rows // ps
+        for u in range(t, np_ * ps * H * nv, THREADS):
+            got[u] = (pb, h)
+            c += dc
+            if c >= nv:
+                c, h = c - nv, h + 1
+            h += dh
+            if h >= H:
+                h, r = h - H, r + 1
+            r += dr
+            if r >= ps:
+                r, pb = r - ps, pb + 1
+            pb += dpb
+    return got
+
+
+@pytest.mark.parametrize("np_,ps,H,nv", [
+    (4, 8, 4, 8), (7, 1, 1, 1), (5, 8, 4, 1), (1, 16, 8, 12), (3, 16, 1, 5),
+    (2, 1, 8192, 1), (1, 1, 300, 3), (16, 3, 7, 1), (1, 256, 1, 1)])
+def test_dequantize_walk_carries_page_and_head(np_, ps, H, nv):
+    got = _dequantize_walk(np_, ps, H, nv)
+    assert len(got) == np_ * ps * H * nv
+    for u, (pb, h) in got.items():
+        assert (pb, h) == (u // nv // H // ps, u // nv % H), u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_page_kernels_bit_exact_over_the_sweep(dtype):
+    """chip_smoke.py's sweep: d 8-192, pages of 1-16 tokens and one too
+    large to stage, 1-8 heads, from aligned pools and at an offset of one
+    element (the one-element units), int8 at an offset of one byte."""
+    if not torch.cuda.is_available():
+        pytest.skip(CUDA_REASON)
+    shapes = [(n, ps, H, d) for d in (8, 48, 80, 128, 192)
+              for n, ps, H in ((7, 1, 1), (5, 8, 4), (3, 16, 8))]
+    for shape in shapes + [(3, 128, 8, 128)]:
+        xt, _ = _pages(shape, "f32")
+        buf = torch.empty(xt.numel() + 1, dtype=dtype, device="cuda")
+        x_off = buf[1:].view(shape)
+        x_off.copy_(xt)
+        for x in (x_off.clone(), x_off):
+            q1, s1 = qz.quantize_page(x)
+            q2, s2 = qz.quantize_page_plain(x)
+            assert torch.equal(q1, q2) and torch.equal(s1, s2), shape
+            qb = torch.empty(q1.numel() + 1, dtype=torch.int8, device="cuda")
+            q_off = qb[1:].view(shape)
+            q_off.copy_(q1)
+            for out_t in (torch.float32, torch.bfloat16):
+                want = qz.dequantize_page_plain(q2, s2, out_t)
+                for qq in (q1, q_off):
+                    assert torch.equal(qz.dequantize_page(qq, s1, out_t),
+                                       want), shape
